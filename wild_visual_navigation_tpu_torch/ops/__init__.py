@@ -1,0 +1,1 @@
+"""Tensor ops of the port; each kernel wrapper sits beside its plain version."""
