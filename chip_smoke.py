@@ -3,18 +3,29 @@
 
     python3 chip_smoke.py        (from the root of the repository)
 
-Builds the port's three CUDA kernels from wild_visual_navigation_tpu_torch/
-csrc/, holds each against its plain PyTorch version at the main path's
-shapes, drives the per-frame path (DINO ViT-S/8 at 224 px with seeded
-weights, SLIC with 100 segments, the converted demo head, per-pixel
-prediction) through DinoInterface and build_fused_frame_fn, checks its
-outputs and that every frame went through the kernels, and times the
-kernels and the frame. Every phase raises on failure.
+Builds the port's four CUDA kernels from wild_visual_navigation_tpu_torch/
+csrc/ (one nvcc per source, in parallel), holds each against its plain
+PyTorch version at the main path's shapes, and drives two paths:
+
+  * the per-frame path (DINO ViT-S/8 at 224 px with seeded weights, SLIC
+    with 100 segments, the converted demo head, per-pixel prediction)
+    through DinoInterface and build_fused_frame_fn;
+  * the online learning loop at the product's settings: the recorded
+    mission assets/sequences/demo_mission.npz replayed in stamp order,
+    each frame through the frame function into the estimator's mission
+    buffer, each robot state through the supervision generator into a
+    footprint reprojection (K4) and a train step; then the learnt head
+    hot-swapped into the frame function, and the same replay on the CPU
+    for comparison.
+
+It checks each path's outputs and that each went through its kernels, and
+times the kernels, the frame, a supervision flush and a train step.
+Every phase raises on failure.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches on the main path, errors and times.
-Without a CUDA device, or outside the repository, it exits non-zero and
-prints no result.
+the kernels with their launches on the main path, errors, times and
+bounds. Without a CUDA device, or outside the repository, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -31,6 +42,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 N_TIMED = 25  # timed runs, each on its own inputs, after WARMUP runs
 WARMUP = 3
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
+# the least time a kernel's work can take is the larger of its bytes over
+# the memory rate and, for each type of operation, its operations over
+# that type's rate.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
 
 
 def card_line() -> str:
@@ -82,6 +99,138 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def bound(nbytes: float, flops: dict) -> dict:
+    """bound_ms and what sets it, from the bytes a kernel must move (inputs
+    read once, outputs written once) and its operations by type."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(n / PEAK_FLOPS[kind] for kind, n in flops.items())
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def footprint_scene(rng, B: int, K: np.ndarray):
+    """B robot footprints (1.0 x 0.6 m, between two poses up to 0.6 m
+    apart, padded to 64 points as the estimator pads them) below B cameras
+    looking down from 1.5-3 m with random yaw and offset. Returns numpy
+    (K (B, 3, 3), camera poses (B, 4, 4), footprints (B, 64, 3))."""
+    from wild_visual_navigation_tpu_torch.traversability.nodes import SupervisionNode
+
+    def rot_z(a):
+        return np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+
+    cams, fps = [], []
+    for _ in range(B):
+        yaw = rng.uniform(-np.pi, np.pi)
+        nodes = []
+        for s in (0.0, rng.uniform(0.1, 0.6)):
+            T = np.eye(4)
+            T[:3, :3] = rot_z(yaw)
+            T[:2, 3] = s * np.array([np.cos(yaw), np.sin(yaw)])
+            nodes.append(SupervisionNode(timestamp=s, pose_base_in_world=T, width=0.6, length=1.0, height=0.3,
+                                         twist_in_base=np.ones(3)))
+        fp = nodes[1].make_footprint_with_node(nodes[0])
+        fps.append(np.concatenate([fp, np.tile(fp[-1:], (64 - len(fp), 1))]))
+        cam = np.eye(4)
+        cam[:3, :3] = rot_z(rng.uniform(-np.pi, np.pi)) @ np.diag([1.0, -1.0, -1.0])
+        cam[:3, 3] = [rng.uniform(-0.5, 0.5), rng.uniform(-0.5, 0.5), rng.uniform(1.5, 3.0)]
+        cams.append(cam)
+    return (np.tile(K[None], (B, 1, 1)).astype(np.float32), np.stack(cams).astype(np.float32),
+            np.stack(fps).astype(np.float32))
+
+
+def scene_hulls(dev, rng, B: int, K: np.ndarray, size: int):
+    """Convex hulls (B, 32, 2) of projected footprints, on `dev`."""
+    import torch
+
+    from wild_visual_navigation_tpu_torch.ops.projection import Camera, project_points
+    from wild_visual_navigation_tpu_torch.ops.rasterize import convex_hull
+
+    Ks, poses, fps = (torch.from_numpy(a).to(dev) for a in footprint_scene(rng, B, K))
+    p2d, _, valid_z = project_points(Camera(Ks, size, size), poses, fps)
+    return convex_hull(p2d, valid_z, max_hull=32)
+
+
+def replay_learning(dev, frame, cg_state, seq: dict, size: int, num_segments: int, feature_dim: int,
+                    frames_in=None):
+    """Replay a recorded mission through the online learning loop at the
+    product's settings (cfg/node_params.py, cfg/experiment.py), in stamp
+    order as the JAX package's runtime replay does: each frame through
+    `frame` and add_mission_node, each robot state through the
+    supervision generator, add_supervision_node and one train step.
+
+    frames_in: per-frame (features, feat_valid, segments) to use in place
+    of running `frame` (the CPU replay takes the card's frame outputs, so
+    it compares the learning loop alone). Returns the estimator and a dict
+    of what the replay saw."""
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.cfg.experiment import ExperimentParams
+    from wild_visual_navigation_tpu_torch.cfg.node_params import LearningNodeParams
+    from wild_visual_navigation_tpu_torch.ops.projection import scale_intrinsics
+    from wild_visual_navigation_tpu_torch.supervision.supervision_generator import SupervisionGenerator
+    from wild_visual_navigation_tpu_torch.traversability.estimator import TraversabilityEstimator
+    from wild_visual_navigation_tpu_torch.traversability.nodes import MissionNode, SupervisionNode
+
+    ln, exp = LearningNodeParams(), ExperimentParams()
+    est = TraversabilityEstimator(
+        model_cfg={"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": feature_dim, "hidden_sizes": [256, 32, 1],
+                                                           "reconstruction": True}},
+        loss_cfg=exp.loss_cfg(), lr=exp.optimizer.lr, max_distance=ln.traversability_radius,
+        image_distance_thr=ln.image_graph_dist_thr, supervision_distance_thr=ln.supervision_graph_dist_thr,
+        min_samples_for_training=ln.min_samples_for_training, batch_size=exp.ablation_data_module.batch_size,
+        buffer_capacity=256, num_segments=num_segments, feature_dim=feature_dim, image_height=size,
+        image_width=size, reprojection_fanout=32, seed=0, device=dev)
+    sg = SupervisionGenerator(untraversable_thr=ln.untraversable_thr)
+    updates, samples = [], []
+    reproject, sample = est._reproject_update, est._sample_indices
+
+    def recorded_reproject(*args):
+        updates.append(args)
+        return reproject(*args)
+
+    def recorded_sample(batch_size=None):
+        idx = sample(batch_size)
+        if idx is not None:
+            samples.append(idx.tolist())
+        return idx
+
+    est._reproject_update, est._sample_indices = recorded_reproject, recorded_sample
+    events = sorted([(t, 0, i) for i, t in enumerate(seq["frame_stamps"])] +
+                    [(t, 1, i) for i, t in enumerate(seq["state_stamps"])], key=lambda e: e[0])
+    frames_out, losses, flushes, k4_per_flush = [], [], 0, []
+    for stamp, kind, i in events:
+        if kind == 0:
+            h0, w0 = seq["frame_images"].shape[2:]
+            if frames_in is None:
+                res = frame(cg_state, torch.from_numpy(seq["frame_images"][i : i + 1]).to(dev))
+                out = (res.features, res.feat_valid, res.segments)
+            else:
+                out = frames_in[i]
+            frames_out.append(out)
+            node = MissionNode(timestamp=float(stamp), pose_base_in_world=seq["frame_pose"][i],
+                               pose_cam_in_base=seq["frame_cam_in_base"][i], camera_name=str(seq["frame_cameras"][i]))
+            est.add_mission_node(node, *out, scale_intrinsics(seq["frame_K"][i], h0, w0, new_h=size))
+            continue
+        trav, var, untrav = sg.update_velocity_tracking(seq["state_twist"][i], seq["state_desired"][i],
+                                                        max_velocity=0.8, velocities=["vx", "vy"])
+        snode = SupervisionNode(timestamp=float(stamp), pose_base_in_world=seq["state_pose"][i],
+                                twist_in_base=seq["state_twist"][i], desired_twist_in_base=seq["state_desired"][i],
+                                length=ln.robot_length, width=ln.robot_width, height=ln.robot_height,
+                                traversability=trav, traversability_var=var, is_untraversable=untrav)
+        n_updates, k4 = len(updates), port.launch_counts()["fill_hulls"]
+        if est.add_supervision_node(snode):
+            flushes += 1
+            k4_per_flush.append((len(updates) - n_updates, port.launch_counts()["fill_hulls"] - k4))
+        step = est.step
+        out = est.train(convert_losses=False)
+        if est.step > step:
+            losses.append(out["loss_total"])
+    losses = [float(x) for x in losses]
+    return est, {"frames": frames_out, "losses": losses, "flushes": flushes, "k4_per_flush": k4_per_flush,
+                 "updates": updates, "samples": samples,
+                 "valid_nodes": est.get_num_valid_nodes()}
+
+
 def main() -> int:
     import torch
 
@@ -96,10 +245,17 @@ def main() -> int:
     from wild_visual_navigation_tpu_torch.ops import _cuda
     from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention, xla_attention
     from wild_visual_navigation_tpu_torch.ops.pixelwise_fused import fused_precompute, score_pixels, score_pixels_plain
+    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import (
+        fill_edges_plain,
+        fill_hulls,
+        fill_hulls_plain,
+        hull_edges,
+        launch_fill,
+    )
     from wild_visual_navigation_tpu_torch.ops.slic import _init_index, pixel_features, rgb_to_lab, slic_batch, slic_geometry
     from wild_visual_navigation_tpu_torch.ops.slic_fused import slic_step, slic_step_plain
     from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_frame_fn
-    from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig
+    from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig, confidence_load_state_dict
     from wild_visual_navigation_tpu_torch.utils.params import confidence_state_from_jax, load_head_npz, mlp_state_from_jax
 
     # ---- 1. the card
@@ -172,6 +328,22 @@ def main() -> int:
     require(agree >= 0.95, "K3 10-iteration agreement")
     results["slic_step"] = {"max_abs_err": float((ids - ids_p).abs().max())}
 
+    # K4 at the reprojection's shape: 32 footprints through 32 downward
+    # cameras at 224 px, hulls of at most 32 vertices (33 edges with the gate)
+    K224 = np.array([[134.4, 0, 112], [0, 134.4, 112], [0, 0, 1]])  # the demo camera scaled 64 -> 224
+    rng = np.random.default_rng(0)
+    hulls, hull_valid = scene_hulls(dev, rng, 32, K224, 224)
+    masks = fill_hulls(hulls, hull_valid, 224, 224)
+    masks_p = fill_hulls_plain(hulls, hull_valid, 224, 224)
+    differ = int((masks != masks_p).sum())
+    degenerate = fill_hulls(hulls, torch.zeros_like(hull_valid), 224, 224)
+    print(f"[K4 fill_hulls] (32, 32, 2) hulls -> 32x224x224: {int(masks.sum())} pixels inside; {differ} of "
+          f"{masks.numel()} pixels differ from the plain version (must be 0); degenerate hulls fill "
+          f"{int(degenerate.sum())} pixels (must be 0)")
+    require(differ == 0, "K4 identical to its plain version")
+    require(int(masks.sum()) > 0 and not bool(degenerate.any()), "K4 fills footprints and no degenerate hull")
+    results["fill_hulls"] = {"max_abs_err": float((masks.float() - masks_p.float()).abs().max())}
+
     # ---- 4. the main path
     size = node.network_input_image_height
     dino = DinoInterface(backbone=node.feature_type, input_size=size, backbone_type=node.dino_backbone,
@@ -195,7 +367,7 @@ def main() -> int:
         require(int(res.segments.min()) >= 0 and int(res.segments.max()) < S, "segment ids in [0, S)")
         require(bool(torch.isfinite(res.features).all()), "pooled features finite")
 
-    per_frame = {"flash_attention": 12, "pixelwise_score": 1, "slic_step": 11}
+    per_frame = {"flash_attention": 12, "pixelwise_score": 1, "slic_step": 11, "fill_hulls": 0}
     torch.cuda.synchronize()
     port.reset_launch_counts()
     for i in range(len(demo)):
@@ -217,7 +389,8 @@ def main() -> int:
     launches = port.launch_counts()
     print(f"[main path] {len(demo)} demo frames + one 480x640 uint8 frame: every frame launched {per_frame}; "
           f"frames_batch at B=4 launched {delta_b}; totals {launches}")
-    require(all(v > 0 for v in launches.values()), "every kernel launched on the main path")
+    require(all(launches[k] > 0 for k in ("flash_attention", "pixelwise_score", "slic_step")),
+            "every frame kernel launched on the frame path")
 
     # The same frame through the plain versions on the CPU (bf16 matmuls
     # round differently there, so maps agree to a bf16 tolerance).
@@ -237,6 +410,58 @@ def main() -> int:
           f"pooled features max abs diff {f_diff:.3e} (tol 0.25)")
     require(seg_agree >= 0.95 and t_diff <= 5e-2 and c_diff <= 5e-2 and f_diff <= 0.25, "agreement with the CPU run")
 
+    # ---- 4b. the online learning loop on the recorded mission, at the product's settings
+    seq = dict(np.load(ROOT / "assets/sequences/demo_mission.npz"))
+    torch.cuda.synchronize()
+    port.reset_launch_counts()
+    t0 = time.perf_counter()
+    est, rep = replay_learning(dev, frame, cg_state, seq, size, S, D)
+    torch.cuda.synchronize()
+    learn_launches = port.launch_counts()
+    replay_s = time.perf_counter() - t0
+    losses = rep["losses"]
+    buf = est.buffer
+    sig = buf.signal[buf.signal_valid]
+    print(f"[learning] {len(seq['frame_stamps'])} frames + {len(seq['state_stamps'])} robot states in "
+          f"{replay_s:.2f} s: {int(buf.valid.sum())} mission nodes in the buffer, {rep['valid_nodes']} valid, "
+          f"{rep['flushes']} supervision flushes, {est.step} train steps; launches {learn_launches}")
+    lo, hi = (float(sig.min()), float(sig.max())) if sig.numel() else (float("nan"), float("nan"))
+    print(f"[learning] losses: first 5 {[round(x, 5) for x in losses[:5]]}, last 5 "
+          f"{[round(x, 5) for x in losses[-5:]]}; {int(sig.numel())} supervised segments, signal in [{lo:.4f}, {hi:.4f}]")
+    require(rep["valid_nodes"] >= 5, "at least 5 valid mission nodes")
+    require(est.step > 0 and len(losses) == est.step and all(np.isfinite(losses)), "train steps with finite losses")
+    require(len(losses) >= 10 and np.mean(losses[-5:]) < np.mean(losses[:5]), "the loss falls over the replay")
+    require(sig.numel() > 0 and lo >= 0.0 and hi <= 1.0, "signals in [0, 1]")
+    require(rep["flushes"] > 0 and all(k == (1, 1) for k in rep["k4_per_flush"]),
+            f"K4 launched once per flush: {rep['k4_per_flush']}")
+    require(learn_launches["fill_hulls"] == rep["flushes"] and all(v > 0 for v in learn_launches.values()),
+            "every kernel launched on the learning path")
+    launches["fill_hulls"] = learn_launches["fill_hulls"]
+
+    # hot swap: the learnt head and its confidence statistics into the frame function
+    hot = est.state_dict_for_hot_swap()
+    mlp.load_state_dict(hot["params"])
+    cg_hot = confidence_load_state_dict(cg_state, hot["confidence_generator"])
+    res_hot = frame(cg_hot, torch.from_numpy(seq["frame_images"][-1:]).to(dev))
+    check(res_hot)
+    print(f"[learning] hot-swapped head (step {hot['step']}): last frame's mean traversability "
+          f"{float(res_hot.traversability.mean()):.4f}, mean confidence {float(res_hot.confidence.mean()):.4f}")
+
+    # the same replay on the CPU, through the plain versions, from the card's frame outputs
+    frames_cpu = [tuple(t.cpu() for t in f) for f in rep["frames"]]
+    est_cpu, rep_cpu = replay_learning(torch.device("cpu"), None, None, seq, size, S, D, frames_in=frames_cpu)
+    occupied = buf.valid.cpu()
+    m_gpu, m_cpu = buf.supervision_mask.cpu()[occupied], est_cpu.buffer.supervision_mask[occupied]
+    mask_differ = int((m_gpu != m_cpu).sum())
+    loss_diff = max((abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, rep_cpu["losses"])),
+                    default=float("nan"))
+    print(f"[learning] CPU replay (plain versions, the card's frame outputs): {rep_cpu['valid_nodes']} valid nodes "
+          f"(card {rep['valid_nodes']}); supervision masks differ in {mask_differ} of {m_gpu.numel()} pixels "
+          f"(max {1e-4 * m_gpu.numel():.0f}); same sampled slots: {rep['samples'] == rep_cpu['samples']}; max relative "
+          f"loss difference {loss_diff:.3e}")
+    require(rep_cpu["valid_nodes"] == rep["valid_nodes"], "the same valid-node count on the CPU")
+    require(mask_differ <= 1e-4 * m_gpu.numel(), "supervision masks agree with the CPU replay")
+
     # ---- 5. timings (device time from CUDA events; frame latency on the host clock)
     for B in (1, 4):
         for dtype in (torch.bfloat16, torch.float32):
@@ -248,7 +473,7 @@ def main() -> int:
             print(f"[time] K1 flash_attention (B={B}, 6, 785, 64) {str(dtype)[6:]}: kernel {k_ms:.4f} ms, plain "
                   f"{p_ms:.4f} ms, torch SDPA (reference line only) {s_ms:.4f} ms | {card}")
             if B == 1 and dtype == torch.bfloat16:
-                results["flash_attention"].update(ms=k_ms, plain_ms=p_ms)
+                results["flash_attention"].update(ms=k_ms, plain_ms=p_ms, library_ms=s_ms)
 
     with torch.no_grad():
         opss = [(fused_precompute(mlp, torch.randn(1, D, 28, 28, device=dev, generator=g), 224, 224),)
@@ -259,7 +484,7 @@ def main() -> int:
                            [(torch.randn(1, D, 28, 28, device=dev, generator=g),) for _ in range(WARMUP + N_TIMED)])
     print(f"[time] K2 pixelwise_score 224x224 from (1, 384, 28, 28): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
           f"(torch precompute before either: {pre_ms:.4f} ms) | {card}")
-    results["pixelwise_score"].update(ms=k_ms, plain_ms=p_ms)
+    results["pixelwise_score"].update(ms=k_ms, plain_ms=p_ms, library_ms=None)
 
     steps = []
     for _ in range(WARMUP + N_TIMED):
@@ -269,7 +494,29 @@ def main() -> int:
     p_ms = device_ms(lambda f, c: slic_step_plain(f, c, 224, ws, win2), steps)
     print(f"[time] K3 slic_step 224x224, K=100 (one of 11 steps per frame): kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms | {card}")
-    results["slic_step"].update(ms=k_ms, plain_ms=p_ms)
+    results["slic_step"].update(ms=k_ms, plain_ms=p_ms, library_ms=None)
+
+    hull_sets = [scene_hulls(dev, rng, 32, K224, 224) for _ in range(WARMUP + N_TIMED)]
+    w_ms = device_ms(lambda h, v: fill_hulls(h, v, 224, 224), hull_sets)
+    wp_ms = device_ms(lambda h, v: fill_hulls_plain(h, v, 224, 224), hull_sets)
+    edge_sets = [(hull_edges(h, v),) for h, v in hull_sets]
+    k_ms = device_ms(lambda e: launch_fill(e, 224, 224), edge_sets)
+    p_ms = device_ms(lambda e: fill_edges_plain(e, 224, 224), edge_sets)
+    print(f"[time] K4 fill_hulls (32, 33, 3) edge lines -> 32x224x224 (one per supervision flush): kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms; with the torch edge construction before each: wrapper {w_ms:.4f} ms, plain "
+          f"{wp_ms:.4f} ms | {card}")
+    results["fill_hulls"].update(ms=k_ms, plain_ms=p_ms, library_ms=None)
+
+    updates = [rep["updates"][i % len(rep["updates"])] for i in range(WARMUP + N_TIMED)]
+    f_dev = device_ms(est._reproject_update, updates)
+    f_wall = wall_ms(est._reproject_update, updates)
+    samples = [(rep["samples"][i % len(rep["samples"])],) for i in range(WARMUP + N_TIMED)]
+    t_dev = device_ms(est._train_step, samples)
+    t_wall = wall_ms(est._train_step, samples)
+    print(f"[time] supervision flush (one footprint over the fan-out of 32, 224x224, S=100): latency {f_wall:.3f} ms "
+          f"on the host clock, {f_dev:.3f} ms between CUDA events | {card}")
+    print(f"[time] train step (batch 8 x 100 segments, SimpleMLP [384, 256, 32, 1+384], Adam): latency "
+          f"{t_wall:.3f} ms on the host clock, {t_dev:.3f} ms between CUDA events | {card}")
 
     frames_1 = [(cg_state, torch.from_numpy(demo[i : i + 1]).to(dev)) for i in range(WARMUP + N_TIMED)]
     lat1 = wall_ms(frame, frames_1)
@@ -279,10 +526,27 @@ def main() -> int:
     print(f"[time] frame B=1 (64x64 demo frame -> 224x224): latency {lat1:.3f} ms on the host clock | {card}")
     print(f"[time] frames_batch B=4: latency {lat4:.3f} ms ({lat4 / 4:.3f} ms per frame) | {card}")
 
+    # bounds at the shapes timed above (B=1 frame; K4 at the fan-out of 32)
+    hw_px = 224 * 224
+    qkv = 6 * 785 * 64
+    results["flash_attention"].update(bound(4 * qkv * 2, {"bf16_tensor": 4 * 6 * 785 * 785 * 64}))
+    # hw (28 patch rows x 224 x 256 bf16), zsts (28 x 224 x 35 fp32), two fp32 maps out; per pixel the
+    # 256 -> 32 product in bf16 and the bf16-rounded H lerp, reco quadratic form and head in fp32
+    results["pixelwise_score"].update(bound(28 * 224 * 256 * 2 + 28 * 224 * 35 * 4 + 2 * hw_px * 4,
+                                            {"bf16_tensor": 2 * 32 * 256 * hw_px,
+                                             "fp32": (3 * 256 + 2 * 33 * 32 + 4 * 32 + 16) * hw_px}))
+    # features (5 x HW fp32) and centres in, ids and per-block partial sums out; ~20 fp32 operations
+    # per (pixel, centre) pair and 6 sums per pixel
+    results["slic_step"].update(bound(5 * hw_px * 4 + 100 * 5 * 4 + hw_px * 4 + (-(-hw_px // 256)) * 100 * 6 * 4,
+                                      {"fp32": 20 * hw_px * 100 + 6 * hw_px}))
+    # 33 edge lines per hull in, one mask byte per pixel out; 5 fp32 operations per edge and pixel
+    results["fill_hulls"].update(bound(32 * 33 * 3 * 4 + 32 * hw_px, {"fp32": 5 * 32 * hw_px * 33}))
+
     sources = {
         "flash_attention": ("flash_attention.cu", "wild_visual_navigation_tpu/ops/flash_attention.py:132"),
         "pixelwise_score": ("pixelwise_score.cu", "wild_visual_navigation_tpu/ops/pixelwise_fused.py:210"),
         "slic_step": ("slic_step.cu", "wild_visual_navigation_tpu/ops/slic_fused.py:128"),
+        "fill_hulls": ("fill_hulls.cu", "wild_visual_navigation_tpu/ops/rasterize_pallas.py:52"),
     }
     kernels = [{"name": name, "route": "cuda", "source": f"wild_visual_navigation_tpu_torch/csrc/{src}",
                 "replaces": rep, "launches": launches[name], **results[name]}

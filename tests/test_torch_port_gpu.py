@@ -94,6 +94,82 @@ def test_frame_launches_each_kernel(cuda):
     port.reset_launch_counts()
     res = frame(confidence_init(cuda), img)
     torch.cuda.synchronize()
-    assert port.launch_counts() == {"flash_attention": 12, "pixelwise_score": 1, "slic_step": 11}
+    assert port.launch_counts() == {"flash_attention": 12, "pixelwise_score": 1, "slic_step": 11, "fill_hulls": 0}
     assert res.traversability.shape == (224, 224) and bool(torch.isfinite(res.traversability).all())
     assert int(res.segments.min()) >= 0 and int(res.segments.max()) < 100
+
+
+def _random_hulls(device, B, E, H, W, seed):
+    """Hulls of random point clouds (some with fewer than 3 valid points)."""
+    from wild_visual_navigation_tpu_torch.ops.rasterize import convex_hull
+
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy((rng.uniform(size=(B, 2 * E, 2)) * [W, H] * 1.3 - 0.15 * np.array([W, H])).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(B, 2 * E)) < 0.7)
+    valid[0, 2:] = False  # a degenerate hull: two points
+    hulls, hull_valid = convex_hull(pts.to(device), valid.to(device), max_hull=E)
+    return hulls, hull_valid
+
+
+@pytest.mark.parametrize("B,E,H,W", [(32, 32, 224, 224), (3, 16, 61, 97), (2, 64, 40, 40)])
+def test_fill_hulls_matches_plain(cuda, B, E, H, W):
+    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls, fill_hulls_plain
+
+    hulls, hull_valid = _random_hulls(cuda, B, E, H, W, seed=B)
+    n = fill_hulls.launches
+    got = fill_hulls(hulls, hull_valid, H, W)
+    torch.cuda.synchronize()
+    assert fill_hulls.launches == n + 1 and got.dtype == torch.bool and got.shape == (B, H, W)
+    want = fill_hulls_plain(hulls, hull_valid, H, W)
+    assert torch.equal(got, want)  # bit-identical masks
+    assert not got[0].any() and got.any()
+
+
+def test_fill_hulls_degenerate_and_nan(cuda):
+    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls, fill_hulls_plain
+
+    zeros = torch.zeros((4, 8, 2), device=cuda)
+    assert not fill_hulls(zeros, torch.zeros((4, 8), dtype=torch.bool, device=cuda), 16, 16).any()
+    square = torch.tensor([[[0.0, 0.0], [10.0, 0.0], [10.0, 10.0], [0.0, 10.0]]] * 2, device=cuda)
+    square[1, 2, 0] = float("nan")
+    ok = torch.ones((2, 4), dtype=torch.bool, device=cuda)
+    got = fill_hulls(square, ok, 12, 12)
+    assert torch.equal(got, fill_hulls_plain(square.cpu(), ok.cpu(), 12, 12).to(cuda))
+    assert int(got[0].sum()) == 121 and not got[1].any()
+    with pytest.raises(ValueError, match="at most 64"):
+        fill_hulls(torch.zeros((1, 65, 2), device=cuda), torch.ones((1, 65), dtype=torch.bool, device=cuda), 8, 8)
+
+
+def test_estimator_flush_launches_fill_hulls_once(cuda):
+    from wild_visual_navigation_tpu_torch.traversability.estimator import TraversabilityEstimator
+    from wild_visual_navigation_tpu_torch.traversability.nodes import MissionNode, SupervisionNode
+
+    est = TraversabilityEstimator(
+        {"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": 16, "hidden_sizes": [32, 1], "reconstruction": True}},
+        image_distance_thr=0.1, supervision_distance_thr=0.05, buffer_capacity=16, num_segments=9, feature_dim=16,
+        image_height=48, image_width=64, reprojection_fanout=8, device=cuda)
+
+    def pose(x, z=0.0):
+        T = np.eye(4)
+        T[:3, 3] = [x, 0.0, z]
+        return T
+
+    cam = pose(0.0, 2.0)
+    cam[:3, :3] = [[1, 0, 0], [0, -1, 0], [0, 0, -1]]
+    seg = torch.arange(9, dtype=torch.int32, device=cuda).reshape(3, 3).repeat_interleave(16, 0).repeat_interleave(22, 1)
+    K = np.array([[40.0, 0, 32], [0, 40.0, 24], [0, 0, 1]])
+    est.add_mission_node(MissionNode(timestamp=0.0, pose_cam_in_base=cam), torch.randn(9, 16, device=cuda),
+                         torch.ones(9, dtype=torch.bool, device=cuda), seg[:48, :64], K)
+
+    def state(t, x):
+        return SupervisionNode(timestamp=t, pose_base_in_world=pose(x), width=0.4, length=0.4, height=0.3,
+                               twist_in_base=np.array([1.0, 0, 0]), traversability=0.7)
+
+    assert not est.add_supervision_node(state(0.0, -0.1))  # the first node has no footprint yet
+    port.reset_launch_counts()
+    assert est.add_supervision_node(state(0.1, 0.1))
+    torch.cuda.synchronize()
+    assert port.launch_counts()["fill_hulls"] == 1
+    assert est.get_num_valid_nodes() == 1
+    sig = est.buffer.signal[0][est.buffer.signal_valid[0]]
+    assert sig.numel() > 0 and torch.allclose(sig, torch.tensor(0.7, device=cuda))

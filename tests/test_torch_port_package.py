@@ -64,6 +64,7 @@ def test_cpu_tensors_never_touch_the_cuda_loader(monkeypatch):
     from wild_visual_navigation_tpu_torch.models.registry import get_model
     from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention
     from wild_visual_navigation_tpu_torch.ops.pixelwise_fused import pixelwise_score_fused
+    from wild_visual_navigation_tpu_torch.ops.rasterize import rasterize_points_hull
     from wild_visual_navigation_tpu_torch.ops.slic import slic_batch
 
     def refuse(*a, **k):
@@ -80,7 +81,9 @@ def test_cpu_tensors_never_touch_the_cuda_loader(monkeypatch):
                                                              "reconstruction": True}}, generator=g)
     trav, reco = pixelwise_score_fused(mlp, torch.randn(1, 16, 4, 4, generator=g), 20, 20)
     assert trav.shape == reco.shape == (1, 20, 20)
-    assert port.launch_counts() == {"flash_attention": 0, "pixelwise_score": 0, "slic_step": 0}
+    pts = torch.tensor([[[2.0, 3.0], [12.0, 3.0], [12.0, 9.0], [2.0, 9.0]]])
+    assert int(rasterize_points_hull(pts, torch.ones((1, 4), dtype=torch.bool), 16, 20).sum()) == 77
+    assert port.launch_counts() == {"flash_attention": 0, "pixelwise_score": 0, "slic_step": 0, "fill_hulls": 0}
 
 
 def test_kernel_wrappers_refuse_other_devices():
@@ -93,15 +96,43 @@ def test_kernel_wrappers_refuse_other_devices():
     ops = FusedOperands(*(torch.empty(2, device="meta") for _ in FusedOperands._fields))
     with pytest.raises(ValueError, match="unsupported device"):
         score_pixels(ops, 16)
+    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        fill_hulls(torch.empty((2, 8, 2), device="meta"), torch.empty((2, 8), dtype=torch.bool, device="meta"), 4, 4)
 
 
 def test_build_is_keyed_on_the_sources():
     assert _cuda.BUILD_DIR.parent == PKG / "csrc"
-    assert {p.name for p in _cuda.CSRC.glob("*.cu")} == {"flash_attention.cu", "pixelwise_score.cu", "slic_step.cu"}
+    assert {p.name for p in _cuda.CSRC.glob("*.cu")} == {"flash_attention.cu", "pixelwise_score.cu", "slic_step.cu",
+                                                        "fill_hulls.cu"}
+    assert set(_cuda.SIGNATURES) >= {f"wvn_{n}" for n in ("flash_attention_fwd", "pixelwise_score", "slic_step",
+                                                           "fill_hulls")}
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
     assert len(_cuda._digest()) == 16
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "wild_visual_navigation_tpu_torch/csrc/_build/" in ignored
+
+
+def test_build_compiles_each_source_in_parallel_then_links(tmp_path, monkeypatch):
+    """One `nvcc -c` per source, all started before any is waited for, then
+    one link into the hashed library (nvcc replaced by a script that logs
+    its arguments and writes its output file)."""
+    log = tmp_path / "calls.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\n"
+                    f"echo \"$*\" >> {log}\n"
+                    "while [ $# -gt 0 ]; do if [ \"$1\" = -o ]; then touch \"$2\"; fi; shift; done\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "_build")
+    lib = _cuda.build()
+    assert lib.exists() and lib.parent == tmp_path / "_build" and _cuda._digest() in lib.name
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in c]
+    assert len(compiles) == len(_cuda._sources()) == 4 and all("sm_90a" in c for c in calls)
+    assert len(calls) == 5 and "-shared" in calls[-1]
+    assert _cuda.build() == lib and len(log.read_text().splitlines()) == 5  # cached: no second build
 
 
 def test_converted_head_matches_flax_checkpoint():

@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-All sources compile in one `nvcc` call into one shared library with a
-plain C interface, loaded with ctypes. The library's file name carries a
-hash of the sources and flags, so a stale build is never loaded. The
+Each source compiles to an object in its own `nvcc` process, all started
+together; one more `nvcc` call links the objects into one shared library
+with a plain C interface, loaded with ctypes. The library's file name
+carries a hash of the sources and flags, so a stale build is never
+loaded. The
 build happens at first use, never at import: the CPU tests import every
 module and a CPU tensor never reaches this file.
 
@@ -27,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,6 +39,7 @@ SIGNATURES = {
     "wvn_pixelwise_score": [_P] * 11 + [_I, _I, _I, _I, _I, _F, _P],
     "wvn_pixelwise_hidden_width": [],
     "wvn_slic_step": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    "wvn_fill_hulls": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -67,25 +70,37 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile csrc/*.cu into csrc/_build/ unless the hashed library
-    exists; returns its path and prints the build time on its own line."""
+    exists: one `nvcc -c` per source, all at once, then one link. Returns
+    the library's path and prints the build time on its own line."""
     global build_seconds
     lib_path = BUILD_DIR / f"libwvn_kernels_{_digest()}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs = [Path(tmp_dir) / f"{src.stem}.o" for src in _sources()]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(_sources(), objs)])
+        tmp = Path(tmp_dir) / lib_path.name
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, lib_path)  # atomic: a concurrent loader sees the old name or the whole file
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees the old name or the whole file
-    print(f"[wvn_torch] built {lib_path.name} from {len(_sources())} sources in {build_seconds:.2f} s", flush=True)
+    print(f"[wvn_torch] built {lib_path.name} from {len(objs)} sources in {build_seconds:.2f} s", flush=True)
     return lib_path
 
 

@@ -1,4 +1,4 @@
-"""Segment (superpixel) ops: pooling, adjacency, centroids, grid.
+"""Segment (superpixel) ops: pooling, masked means, adjacency, centroids, grid.
 
 Port of wild_visual_navigation_tpu/ops/segment_ops.py. Outputs keep the
 reference's fixed padded shapes — `num_segments` rows and `max_edges`
@@ -47,6 +47,31 @@ def segment_mean_pool_upsampled(feat: torch.Tensor, seg: torch.Tensor, num_segme
     sums = torch.einsum("spq,dpq->sd", A, feat.float())
     counts = onehot.sum((0, 1))
     return sums / counts.clamp_min(1.0)[:, None], counts
+
+
+def segment_masked_mean(values: torch.Tensor, value_valid: torch.Tensor, seg: torch.Tensor, num_segments: int):
+    """Per-segment mean of a masked scalar field, batched over leading dims.
+
+    values (..., H, W) float, value_valid (..., H, W) bool, seg (..., H, W)
+    ids -> (mean (..., S), valid (..., S) bool): the mean over valid
+    pixels (0 where there is none) and the reference's `mean > 0`
+    validity. Sums and counts go through `index_add_` over the flat ids
+    `image · S + seg`, so no (pixels, S) one-hot is formed (at the
+    reprojection's 32 views × 224² × 100 segments it would take 642 MB);
+    ids outside [0, S) fall into a spare last bin."""
+    lead = values.shape[:-2]
+    S = num_segments
+    v = torch.where(value_valid, values, 0.0).reshape(-1, values.shape[-2] * values.shape[-1]).float()
+    m = value_valid.reshape(v.shape).float()
+    ids = seg.reshape(v.shape).long()
+    n = v.shape[0]
+    base = torch.arange(n, device=ids.device)[:, None] * S
+    flat = torch.where((ids >= 0) & (ids < S), base + ids, n * S).reshape(-1)
+    sums = torch.zeros(n * S + 1, dtype=torch.float32, device=v.device).index_add_(0, flat, (v * m).reshape(-1))
+    counts = torch.zeros(n * S + 1, dtype=torch.float32, device=v.device).index_add_(0, flat, m.reshape(-1))
+    sums, counts = sums[: n * S].reshape(*lead, S), counts[: n * S].reshape(*lead, S)
+    mean = torch.where(counts > 0, sums / torch.clamp_min(counts, 1.0), 0.0)
+    return mean, mean > 0
 
 
 def segment_centers(seg: torch.Tensor, num_segments: int):

@@ -12,7 +12,9 @@ Layout changes:
   * the qkv columns keep flax's (3, heads, head_dim) order, which
     models/vit.py::Attention splits the same way.
 
-`load_head_npz` reads the converted head written by
+`train_state_from_jax` carries a JAX estimator's whole optimisation
+state (params, optax Adam moments, confidence state, step) into the
+port's estimator. `load_head_npz` reads the converted head written by
 tools/convert_head_to_torch.py.
 """
 
@@ -117,3 +119,24 @@ def load_head_npz(path) -> tuple[dict, dict, int]:
                 params.setdefault(layer, {})[leaf] = z[key]
         step = int(z["step"])
     return {"params": params}, cg, step
+
+
+def train_state_from_jax(params: Mapping, opt_state, cg_state, step: int, device=None) -> dict:
+    """A JAX estimator's numpy training state -> keyword arguments of the
+    port's `TraversabilityEstimator.adopt_train_state`.
+
+    opt_state is `optax.adam`'s state (a tuple holding a ScaleByAdamState,
+    or that state itself); its `mu` / `nu` trees have the params' layout
+    and become torch.optim.Adam's `exp_avg` / `exp_avg_sq` with the same
+    kernel transposes as the params, and its `count` Adam's `step`."""
+    adam = opt_state if hasattr(opt_state, "mu") else next(s for s in opt_state if hasattr(s, "mu"))
+    return {
+        "params": mlp_state_from_jax(params),
+        "adam": {
+            "step": int(np.asarray(adam.count)),
+            "exp_avg": mlp_state_from_jax(adam.mu),
+            "exp_avg_sq": mlp_state_from_jax(adam.nu),
+        },
+        "cg_state": confidence_state_from_jax(cg_state, device),
+        "step": int(step),
+    }
