@@ -19,8 +19,14 @@ PyTorch version at the main path's shapes, and drives two paths:
     for comparison.
 
 It checks each path's outputs and that each went through its kernels, and
-times the kernels, the frame, a supervision flush and a train step.
-Every phase raises on failure.
+times the kernels, the frame, a supervision flush and a train step. It
+also prints K1's and K3's registers, shared memory and spills (ptxas's
+report of the build), the count of HGMMA instructions in the library's
+SASS (K1's bf16 body runs on the tensor cores: it must be above 0), K1
+at five ViT shapes beside SDPA, K1 on strided views of a qkv buffer, K3
+with the bound of the (pixel, candidate) pairs it searched, `slic_batch`
+at B=1 and B=4, and a torch.profiler breakdown of 10 frames. Every phase
+raises on failure.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main path, errors, times and
@@ -48,6 +54,14 @@ WARMUP = 3
 # that type's rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
+# K1's shapes: the main path's, then the ViT configurations with longer sequences
+ATTN_SHAPES = {
+    (1, 6, 785, 64): "ViT-S/8 at 224, the main path",
+    (4, 6, 785, 64): "ViT-S/8 at 224, frames_batch B=4",
+    (1, 6, 1025, 64): "ViT-S/14 at 448",
+    (1, 6, 3137, 64): "ViT-S/8 at 448",
+    (1, 12, 2117, 64): "ViT-B/14 at 644",
+}
 
 
 def card_line() -> str:
@@ -94,6 +108,38 @@ def wall_ms(fn, inputs) -> float:
     return statistics.median(times)
 
 
+def kernel_resources(report: str) -> list[str]:
+    """K1's and K3's registers, static shared memory and spills from ptxas's
+    report of the build (-Xptxas -v), with each kernel's dynamic shared
+    memory at the main path's shapes."""
+    from wild_visual_navigation_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    dynamic = {"flash_fwd_bf16_kernel": lib.wvn_flash_attention_smem_bytes(), "flash_fwd_f32_kernel": 0,
+               "slic_step_kernel": lib.wvn_slic_step_smem_bytes(100, 224, 224)}
+    lines, name, spills = [], None, ""
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            name = next((k for k in dynamic if k in line), None)
+        elif name and "spill" in line:
+            spills = line.strip()
+        elif name and "Used" in line:
+            used = line.split(":", 1)[1].strip()
+            at = " at K=100, 224x224" if name.startswith("slic") else ""
+            lines.append(f"{name}: {used}; {spills}; dynamic smem {dynamic[name]} bytes{at}")
+            name = None
+    return lines
+
+
+def hgmma_count(lib_path) -> int:
+    """Number of HGMMA (wgmma) instructions in the library's SASS."""
+    import os
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True, timeout=300)
+    return sum("HGMMA" in line for line in out.stdout.splitlines())
+
+
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -105,6 +151,48 @@ def bound(nbytes: float, flops: dict) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = max(n / PEAK_FLOPS[kind] for kind, n in flops.items())
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def slic_work(centers, H: int, W: int, ws: float, win2: float) -> tuple[int, int]:
+    """The work K3 does on these centres: (pixel, candidate) pairs over the
+    tiles' candidate lists, and the orphan pixels (no centre in the
+    window), which scan all K."""
+    import torch
+
+    from wild_visual_navigation_tpu_torch.ops.slic_fused import TILE, tile_candidates_plain
+
+    n_cand = tile_candidates_plain(centers, H, W, ws, win2)[0].sum(1)  # (tiles,)
+    ys, xs = torch.arange(0, H, TILE), torch.arange(0, W, TILE)
+    pix = ((H - ys).clamp(max=TILE)[:, None] * (W - xs).clamp(max=TILE)[None, :]).reshape(-1).to(n_cand.device)
+    cy, cx = centers[0, :, 3] / ws, centers[0, :, 4] / ws
+    p = torch.arange(H * W, device=centers.device)
+    d2s = ((p // W)[:, None] - cy[None]) ** 2 + ((p % W)[:, None] - cx[None]) ** 2
+    return int((n_cand * pix).sum()), int((d2s.min(1).values > win2).sum())
+
+
+def profile_frames(frame, cg_state, demo, dev, card: str, n: int = 10) -> None:
+    """torch.profiler over n frames: device kernel time per frame by
+    kernel, and the device's busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = [torch.from_numpy(demo[i : i + 1]).to(dev) for i in range(n)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in frames:
+            frame(cg_state, x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA") and r.device_time_total > 0]
+    rows.sort(key=lambda r: r.device_time_total, reverse=True)
+    busy = sum(r.device_time_total for r in rows) / 1e3
+    print(f"[profile] {n} frames B=1: wall {wall:.2f} ms under the profiler, device kernels {busy:.3f} ms "
+          f"({busy / n:.3f} ms per frame), busy share {busy / wall:.3f}; {sum(r.count for r in rows) / n:.0f} kernel "
+          f"launches per frame | {card}")
+    for r in rows[:14]:
+        print(f"[profile]   {r.device_time_total / 1e3 / n:8.4f} ms/frame  {r.count / n:6.1f} calls/frame  "
+              f"{r.key[:90]}")
 
 
 def footprint_scene(rng, B: int, K: np.ndarray):
@@ -253,7 +341,12 @@ def main() -> int:
         launch_fill,
     )
     from wild_visual_navigation_tpu_torch.ops.slic import _init_index, pixel_features, rgb_to_lab, slic_batch, slic_geometry
-    from wild_visual_navigation_tpu_torch.ops.slic_fused import slic_step, slic_step_plain
+    from wild_visual_navigation_tpu_torch.ops.slic_fused import (
+        SlicScratch,
+        slic_step,
+        slic_step_plain,
+        tile_candidates_plain,
+    )
     from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_frame_fn
     from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig, confidence_load_state_dict
     from wild_visual_navigation_tpu_torch.utils.params import confidence_state_from_jax, load_head_npz, mlp_state_from_jax
@@ -272,6 +365,12 @@ def main() -> int:
     _cuda.library()
     built = f"nvcc {_cuda.build_seconds:.2f} s" if _cuda.build_seconds is not None else "cached library"
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s ({built})", flush=True)
+    for line in kernel_resources(_cuda.resource_report()):
+        print(f"[resources] {line}")
+    hgmma = hgmma_count(_cuda.build())
+    print(f"[resources] HGMMA instructions in the library's SASS (cuobjdump -sass): {hgmma}; all are K1's bf16 body, "
+          f"the only wgmma user")
+    require(hgmma > 0, "K1 (bf16) runs on the tensor cores: HGMMA in its SASS")
 
     g = torch.Generator(device=dev).manual_seed(0)
     head_params, head_cg, head_step = load_head_npz(ROOT / "assets/checkpoints/replay_demo_head_torch.npz")
@@ -294,6 +393,19 @@ def main() -> int:
             print(f"[K1 flash_attention] (B={B}, 6, 785, 64) {str(dtype)[6:]}: max abs err {err:.3e} (tol {tol:.0e})")
             require(err <= tol, f"K1 at B={B} {dtype}")
             attn_cases.append((B, dtype, err))
+    for shape in list(ATTN_SHAPES)[2:]:
+        q, k, v = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16) for _ in range(3))
+        err = float((flash_attention(q, k, v, 0.125).float() - xla_attention(q, k, v, 0.125).float()).abs().max())
+        print(f"[K1 flash_attention] {shape} bfloat16 ({ATTN_SHAPES[shape]}): max abs err {err:.3e} (tol 3e-02)")
+        require(err <= 3e-2, f"K1 at {shape}")
+    for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        buf = torch.randn(2, 785, 3, 6, 64, device=dev, generator=g).to(dtype)  # (B, S, 3, H, Dh) as the ViT's qkv
+        q, k, v = buf.permute(2, 0, 3, 1, 4).unbind(0)
+        out = flash_attention(q, k, v, 0.125)
+        err = float((out.float() - xla_attention(q, k, v, 0.125).float()).abs().max())
+        print(f"[K1 flash_attention] strided views of a (2, 785, 3, 6, 64) {str(dtype)[6:]} qkv buffer: max abs err "
+              f"{err:.3e} (tol {tol:.0e}); output strides {out.stride()} (a (B, S, H, D) buffer)")
+        require(err <= tol and out.stride() == (785 * 6 * 64, 64, 6 * 64, 1), f"K1 on strided views, {dtype}")
     results["flash_attention"] = {"max_abs_err": attn_cases[0][2]}
 
     feat = torch.randn(1, D, 28, 28, device=dev, generator=g)
@@ -312,21 +424,29 @@ def main() -> int:
 
     img = torch.rand(1, 3, 224, 224, device=dev, generator=g)
     ws, win2 = slic_geometry(100, 10.0, 224, 224)
-    feats = pixel_features(rgb_to_lab(img), ws)
-    centers = feats[:, :, _init_index(100, 224, 224).to(dev)].transpose(1, 2)
-    centers = (centers + 0.5 * torch.randn(centers.shape, device=dev, generator=g)).contiguous()
-    ids, partials = slic_step(feats, centers, 224, ws, win2)
-    ids_p, partials_p = slic_step_plain(feats, centers, 224, ws, win2)
-    same = int((ids != ids_p).sum())
-    perr = float((partials - partials_p).abs().max())
+    centre_errs = []
+    for (H, W), K in (((224, 224), 100), ((61, 97), 12), ((448, 448), 100)):
+        ws_k, win2_k = slic_geometry(K, 10.0, H, W)
+        f = pixel_features(rgb_to_lab(torch.rand(1, 3, H, W, device=dev, generator=g)), ws_k)
+        c = f[:, :, _init_index(K, H, W).to(dev)].transpose(1, 2)
+        c = (c + 0.5 * torch.randn(c.shape, device=dev, generator=g)).contiguous()
+        runs = [tuple(t.clone() for t in slic_step(f, c, W, ws_k, win2_k)) for _ in range(2)]
+        ids_p, centers_p = slic_step_plain(f, c, W, ws_k, win2_k)
+        differ = int((runs[0][0] != ids_p).sum())
+        cerr = float((runs[0][1] - centers_p).abs().max())
+        cbound = float(((runs[0][1] - centers_p).abs() - 1e-5 * centers_p.abs()).max())
+        bitwise = torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1].view(torch.int32),
+                                                                       runs[1][1].view(torch.int32))
+        print(f"[K3 slic_step] {H}x{W}, K={K}: single-step ids differing {differ} of {H * W} (must be 0); new centres "
+              f"max abs err {cerr:.3e} (tol atol 1e-3 + rtol 1e-5); two runs bitwise equal: {bitwise}")
+        require(differ == 0 and cbound <= 1e-3 and bitwise, f"K3 at {H}x{W}")
+        centre_errs.append(cerr)
     seg_k = slic_batch(img)
     seg_p = slic_batch(img.cpu())  # the whole Lloyd loop with the plain step
     agree = float((seg_k.cpu() == seg_p).float().mean())
-    print(f"[K3 slic_step] 224x224, K=100: single-step ids differing {same} of {224 * 224} (must be 0); partial sums "
-          f"max abs err {perr:.3e}; 10-iteration label agreement with the plain loop {agree:.4f} (min 0.95)")
-    require(same == 0, "K3 single-step ids identical")
+    print(f"[K3 slic_step] 224x224, K=100, 10 iterations: label agreement with the plain loop {agree:.4f} (min 0.95)")
     require(agree >= 0.95, "K3 10-iteration agreement")
-    results["slic_step"] = {"max_abs_err": float((ids - ids_p).abs().max())}
+    results["slic_step"] = {"max_abs_err": centre_errs[0]}
 
     # K4 at the reprojection's shape: 32 footprints through 32 downward
     # cameras at 224 px, hulls of at most 32 vertices (33 edges with the gate)
@@ -463,17 +583,25 @@ def main() -> int:
     require(mask_differ <= 1e-4 * m_gpu.numel(), "supervision masks agree with the CPU replay")
 
     # ---- 5. timings (device time from CUDA events; frame latency on the host clock)
-    for B in (1, 4):
-        for dtype in (torch.bfloat16, torch.float32):
-            qkvs = [tuple(torch.randn(B, 6, 785, 64, device=dev, generator=g).to(dtype) for _ in range(3))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for shape, what in ATTN_SHAPES.items():
+        B, H, S, Dh = shape
+        for dtype in (torch.bfloat16, torch.float32) if S == 785 else (torch.bfloat16,):
+            qkvs = [tuple(torch.randn(shape, device=dev, generator=g).to(dtype) for _ in range(3))
                     for _ in range(WARMUP + N_TIMED)]
             k_ms = device_ms(lambda q, k, v: flash_attention(q, k, v, 0.125), qkvs)
             p_ms = device_ms(lambda q, k, v: xla_attention(q, k, v, 0.125), qkvs)
-            s_ms = device_ms(lambda q, k, v: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=0.125), qkvs)
-            print(f"[time] K1 flash_attention (B={B}, 6, 785, 64) {str(dtype)[6:]}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, torch SDPA (reference line only) {s_ms:.4f} ms | {card}")
-            if B == 1 and dtype == torch.bfloat16:
-                results["flash_attention"].update(ms=k_ms, plain_ms=p_ms, library_ms=s_ms)
+            s_ms = device_ms(lambda q, k, v: sdpa(q, k, v, scale=0.125), qkvs)
+            bf16 = dtype == torch.bfloat16
+            b = bound(4 * B * H * S * Dh * (2 if bf16 else 4),
+                      {"bf16_tensor" if bf16 else "fp32": 4 * B * H * S * S * Dh})
+            blocks = -(-S // 64) * B * H
+            print(f"[time] K1 flash_attention {shape} {str(dtype)[6:]} ({what}): kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, torch SDPA (reference line only) {s_ms:.4f} ms; bound {b['bound_ms']:.6f} ms "
+                  f"({b['bound_by']}), share of the bound {b['bound_ms'] / k_ms:.3f}; grid {blocks} blocks on "
+                  f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs | {card}")
+            if shape == (1, 6, 785, 64) and bf16:
+                results["flash_attention"].update(ms=k_ms, plain_ms=p_ms, library_ms=s_ms, **b)
 
     with torch.no_grad():
         opss = [(fused_precompute(mlp, torch.randn(1, D, 28, 28, device=dev, generator=g), 224, 224),)
@@ -490,11 +618,29 @@ def main() -> int:
     for _ in range(WARMUP + N_TIMED):
         f = pixel_features(rgb_to_lab(torch.rand(1, 3, 224, 224, device=dev, generator=g)), ws)
         steps.append((f, f[:, :, _init_index(100, 224, 224).to(dev)].transpose(1, 2).contiguous()))
-    k_ms = device_ms(lambda f, c: slic_step(f, c, 224, ws, win2), steps)
+    scratch = SlicScratch.allocate(1, 224, 224, 100, dev)
+    k_ms = device_ms(lambda f, c: slic_step(f, c, 224, ws, win2, scratch), steps)
     p_ms = device_ms(lambda f, c: slic_step_plain(f, c, 224, ws, win2), steps)
-    print(f"[time] K3 slic_step 224x224, K=100 (one of 11 steps per frame): kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms | {card}")
-    results["slic_step"].update(ms=k_ms, plain_ms=p_ms, library_ms=None)
+    pairs, orphans = zip(*(slic_work(c, 224, 224, ws, win2) for _, c in steps[WARMUP:]))
+    pairs, orphans = float(np.mean(pairs)), float(np.mean(orphans))
+    hw_px = 224 * 224
+    # features (5 x HW fp32) and centres in, ids and new centres out; ~20 fp32 operations per (pixel,
+    # candidate) pair and per (orphan, centre) pair, 6 sums per pixel
+    k3_bytes = 5 * hw_px * 4 + 100 * 5 * 4 + hw_px * 4 + 100 * 5 * 4
+    results["slic_step"].update(ms=k_ms, plain_ms=p_ms, library_ms=None,
+                                **bound(k3_bytes, {"fp32": 20 * (pairs + orphans * 100) + 6 * hw_px}))
+    dense = bound(k3_bytes, {"fp32": 20 * hw_px * 100 + 6 * hw_px})
+    print(f"[time] K3 slic_step 224x224, K=100, one iteration with its centre update (11 launches per frame): kernel "
+          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound {results['slic_step']['bound_ms']:.6f} ms from "
+          f"{pairs:.0f} (pixel, candidate) pairs ({pairs / hw_px:.2f} per pixel) and {orphans:.0f} orphans x 100; "
+          f"dense bound over all K {dense['bound_ms']:.6f} ms | {card}")
+
+    for B in (1, 4):
+        imgs = [(torch.rand(B, 3, 224, 224, device=dev, generator=g),) for _ in range(WARMUP + N_TIMED)]
+        sb_dev = device_ms(slic_batch, imgs)
+        sb_wall = wall_ms(slic_batch, imgs)
+        print(f"[time] slic_batch B={B} at 224x224, K=100, 10 iterations (11 K3 launches): {sb_dev:.4f} ms between "
+              f"CUDA events, {sb_wall:.4f} ms on the host clock | {card}")
 
     hull_sets = [scene_hulls(dev, rng, 32, K224, 224) for _ in range(WARMUP + N_TIMED)]
     w_ms = device_ms(lambda h, v: fill_hulls(h, v, 224, 224), hull_sets)
@@ -525,20 +671,14 @@ def main() -> int:
     lat4 = wall_ms(frame.frames_batch, batches)
     print(f"[time] frame B=1 (64x64 demo frame -> 224x224): latency {lat1:.3f} ms on the host clock | {card}")
     print(f"[time] frames_batch B=4: latency {lat4:.3f} ms ({lat4 / 4:.3f} ms per frame) | {card}")
+    profile_frames(frame, cg_state, demo, dev, card)
 
     # bounds at the shapes timed above (B=1 frame; K4 at the fan-out of 32)
-    hw_px = 224 * 224
-    qkv = 6 * 785 * 64
-    results["flash_attention"].update(bound(4 * qkv * 2, {"bf16_tensor": 4 * 6 * 785 * 785 * 64}))
     # hw (28 patch rows x 224 x 256 bf16), zsts (28 x 224 x 35 fp32), two fp32 maps out; per pixel the
     # 256 -> 32 product in bf16 and the bf16-rounded H lerp, reco quadratic form and head in fp32
     results["pixelwise_score"].update(bound(28 * 224 * 256 * 2 + 28 * 224 * 35 * 4 + 2 * hw_px * 4,
                                             {"bf16_tensor": 2 * 32 * 256 * hw_px,
                                              "fp32": (3 * 256 + 2 * 33 * 32 + 4 * 32 + 16) * hw_px}))
-    # features (5 x HW fp32) and centres in, ids and per-block partial sums out; ~20 fp32 operations
-    # per (pixel, centre) pair and 6 sums per pixel
-    results["slic_step"].update(bound(5 * hw_px * 4 + 100 * 5 * 4 + hw_px * 4 + (-(-hw_px // 256)) * 100 * 6 * 4,
-                                      {"fp32": 20 * hw_px * 100 + 6 * hw_px}))
     # 33 edge lines per hull in, one mask byte per pixel out; 5 fp32 operations per edge and pixel
     results["fill_hulls"].update(bound(32 * 33 * 3 * 4 + 32 * hw_px, {"fp32": 5 * 32 * hw_px * 33}))
 

@@ -91,6 +91,33 @@ def test_small_vit_matches_jax_fp32(small_vit_case, impl):
         np.testing.assert_allclose(got["cls_token"].numpy(), want["cls_token"], atol=1e-4)
 
 
+def test_attention_passes_strided_qkv_views_and_matches_jax(small_vit_case, monkeypatch):
+    """Attention hands the attention function views of its qkv product,
+    with no copies (the (B, N, 3, H, Dh) buffer's strides), and the ViT
+    still matches JAX attention_impl="xla" at fp32: atol 1e-4."""
+    variant, params, cases = small_vit_case
+    seen = []
+
+    def recording_flash(q, k, v, sm_scale):
+        seen.append((q, k, v))
+        return flash_attention(q, k, v, sm_scale)
+
+    monkeypatch.setattr(tvit, "flash_attention", recording_flash)
+    tv = tvit.VisionTransformer(tvit.ViTConfig(**SMALL, **variant), attention_impl="flash", dtype=torch.float32)
+    tv.load_state_dict(vit_state_from_jax(params))
+    for x, want in cases:
+        with torch.no_grad():
+            got = tv(torch.from_numpy(x))
+        np.testing.assert_allclose(got["patch_tokens"].numpy(), want["patch_tokens"], atol=1e-4)
+        np.testing.assert_allclose(got["cls_token"].numpy(), want["cls_token"], atol=1e-4)
+    assert len(seen) == SMALL["depth"] * len(cases)
+    for q, k, v in seen:
+        B, H, N, Dh = q.shape
+        assert q.stride() == (N * 3 * H * Dh, Dh, 3 * H * Dh, 1) and k.stride() == v.stride() == q.stride()
+        assert k.data_ptr() - q.data_ptr() == H * Dh * q.element_size()  # slices of one buffer
+        assert v.data_ptr() - k.data_ptr() == H * Dh * q.element_size()
+
+
 def test_small_vit_bf16_close_to_jax():
     """The default bf16 compute with fp32 LayerNorms: the two frameworks
     round bf16 at different places, so hold the features to a bf16

@@ -24,43 +24,112 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(1, 6, 785, 64), (2, 3, 200, 64), (1, 1, 7, 64)])
+def _qkv(cuda, B, H, S, dtype, layout, seed):
+    """q, k, v of shape (B, H, S, 64): three contiguous tensors, or the
+    strided views of one (B, S, 3, H, 64) qkv buffer as models/vit.py makes
+    them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if layout == "contiguous":
+        return [torch.randn((B, H, S, 64), device=cuda, generator=g).to(dtype) for _ in range(3)]
+    buf = torch.randn((B, S, 3, H, 64), device=cuda, generator=g).to(dtype)
+    return list(buf.permute(2, 0, 3, 1, 4).unbind(0))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "qkv"])
+@pytest.mark.parametrize("S", [7, 200, 785, 1025, 2117, 3137])
+@pytest.mark.parametrize("B", [1, 4])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-def test_flash_attention_matches_plain(cuda, shape, dtype, atol):
+def test_flash_attention_matches_plain(cuda, B, S, layout, dtype, atol):
     from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention, xla_attention
 
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(shape, device=cuda, generator=g).to(dtype) for _ in range(3))
+    H = 6
+    q, k, v = _qkv(cuda, B, H, S, dtype, layout, seed=S + B)
     n = flash_attention.launches
     out = flash_attention(q, k, v, 0.125)
     torch.cuda.synchronize()
-    assert flash_attention.launches == n + 1 and out.dtype == dtype
+    assert flash_attention.launches == n + 1 and out.dtype == dtype and out.shape == (B, H, S, 64)
+    assert out.stride() == (S * H * 64, 64, H * 64, 1)  # a (B, S, H, D) buffer
     torch.testing.assert_close(out.float(), xla_attention(q, k, v, 0.125).float(), atol=atol, rtol=0)
 
 
-def test_flash_attention_refuses_other_head_dims(cuda):
+def test_flash_attention_refuses_other_head_dims_and_misaligned_views(cuda):
     from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention
 
     q = torch.zeros(1, 1, 16, 32, device=cuda)
     with pytest.raises(ValueError, match="head dim 64"):
         flash_attention(q, q, q)
+    odd = torch.zeros(1, 1, 16, 65, device=cuda, dtype=torch.bfloat16)[..., 1:]  # 2-byte offset base
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(odd, odd, odd)
 
 
-@pytest.mark.parametrize("hw,K", [((224, 224), 100), ((61, 97), 12)])
-def test_slic_step_matches_plain(cuda, hw, K):
+def _slic_inputs(cuda, B, H, W, K, seed):
     from wild_visual_navigation_tpu_torch.ops.slic import _init_index, pixel_features, rgb_to_lab, slic_geometry
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    ws, win2 = slic_geometry(K, 10.0, H, W)
+    feats = pixel_features(rgb_to_lab(torch.rand(B, 3, H, W, device=cuda, generator=g)), ws)
+    centers = feats[:, :, _init_index(K, H, W).to(cuda)].transpose(1, 2)
+    centers = (centers + 0.5 * torch.randn(centers.shape, device=cuda, generator=g)).contiguous()
+    return feats, centers, ws, win2
+
+
+@pytest.mark.parametrize("hw,K", [((224, 224), 100), ((61, 97), 12), ((448, 448), 100)])
+def test_slic_step_matches_plain(cuda, hw, K):
     from wild_visual_navigation_tpu_torch.ops.slic_fused import slic_step, slic_step_plain
 
     H, W = hw
-    g = torch.Generator(device=cuda).manual_seed(1)
-    ws, win2 = slic_geometry(K, 10.0, H, W)
-    feats = pixel_features(rgb_to_lab(torch.rand(2, 3, H, W, device=cuda, generator=g)), ws)
-    centers = feats[:, :, _init_index(K, H, W).to(cuda)].transpose(1, 2)
-    centers = (centers + 0.5 * torch.randn(centers.shape, device=cuda, generator=g)).contiguous()
-    ids, partials = slic_step(feats, centers, W, ws, win2)
-    want_ids, want_partials = slic_step_plain(feats, centers, W, ws, win2)
+    feats, centers, ws, win2 = _slic_inputs(cuda, 2, H, W, K, seed=1)
+    n = slic_step.launches
+    ids, new_centers = slic_step(feats, centers, W, ws, win2)
+    torch.cuda.synchronize()
+    assert slic_step.launches == n + 1
+    want_ids, want_centers = slic_step_plain(feats, centers, W, ws, win2)
     assert torch.equal(ids, want_ids)  # identical single-step ids
-    torch.testing.assert_close(partials, want_partials, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(new_centers, want_centers, atol=1e-3, rtol=1e-5)
+
+
+def test_slic_step_orphans_repeatability_and_batch(cuda):
+    """B = 4 at 224^2: in image 1 a block of centres has moved far away, so
+    a patch of pixels lies outside every window (orphans); ids equal the
+    plain version's, and two runs are bitwise equal in ids and centres."""
+    from wild_visual_navigation_tpu_torch.ops.slic_fused import SlicScratch, slic_step, slic_step_plain
+
+    H = W = 224
+    K = 100
+    feats, centers, ws, win2 = _slic_inputs(cuda, 4, H, W, K, seed=2)
+    centers[1, :30, 3] += 2 * H * ws  # the top rows' centres leave the image
+    ws_t = torch.tensor(ws, device=cuda)
+    cy, cx = centers[1, :, 3] / ws_t, centers[1, :, 4] / ws_t
+    py = torch.arange(H * W, device=cuda) // W
+    px = torch.arange(H * W, device=cuda) % W
+    d2s = (py[:, None] - cy[None]) ** 2 + (px[:, None] - cx[None]) ** 2
+    assert int((d2s.min(1).values > win2 * 1.01).sum()) > 1000  # a patch of orphans
+    want_ids, want_centers = slic_step_plain(feats, centers, W, ws, win2)
+    runs = []
+    for _ in range(2):
+        scratch = SlicScratch.allocate(4, H, W, K, cuda)
+        ids, new_centers = slic_step(feats, centers, W, ws, win2, scratch)
+        runs.append((ids.clone(), new_centers.clone()))
+        assert int(scratch.tickets.abs().sum()) == 0  # each launch leaves its tickets at zero
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], want_ids)
+    torch.testing.assert_close(runs[0][1], want_centers, atol=1e-3, rtol=1e-5)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1].view(torch.int32), runs[1][1].view(torch.int32))  # bitwise
+
+
+def test_slic_batch_runs_one_launch_per_step(cuda):
+    from wild_visual_navigation_tpu_torch.ops.slic import slic_batch
+    from wild_visual_navigation_tpu_torch.ops.slic_fused import slic_step
+
+    imgs = torch.rand(2, 3, 224, 224, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    n = slic_step.launches
+    seg = slic_batch(imgs)
+    torch.cuda.synchronize()
+    assert slic_step.launches == n + 11
+    agree = float((seg.cpu() == slic_batch(imgs.cpu())).float().mean())
+    assert seg.shape == (2, 224, 224) and agree >= 0.95
 
 
 def test_pixelwise_score_matches_plain(cuda):

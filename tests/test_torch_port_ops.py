@@ -172,7 +172,7 @@ def test_slic_single_step_matches_jax():
 def test_slic_step_matches_jax_pallas_step():
     """One step from the same perturbed centres against the reference's
     Pallas step (interpret mode): ids identical on >= 99.9% of pixels,
-    and the summed per-block partials match its accumulator."""
+    and the new centres equal the means of its accumulator."""
     from wild_visual_navigation_tpu.ops.slic_fused import _P, _round_up, _slic_step
 
     H, W, K = 64, 64, 12
@@ -183,7 +183,7 @@ def test_slic_step_matches_jax_pallas_step():
     idx = tslic._init_index(K, H, W)
     centers = feats[:, :, idx].transpose(1, 2) + torch.from_numpy(rng.standard_normal((1, K, 5)).astype(np.float32))
     centers = centers.contiguous()
-    ids, partials = tslic_fused.slic_step(feats, centers, W, ws, win2)
+    ids, new_centers = tslic_fused.slic_step(feats, centers, W, ws, win2)
 
     HWpad = _round_up(H * W, _P)
     f_np = np.zeros((1, 8, HWpad), np.float32)
@@ -195,11 +195,130 @@ def test_slic_step_matches_jax_pallas_step():
     jids = np.asarray(jids).reshape(-1)[: H * W]
     assert np.mean(ids.numpy()[0] == jids) >= 0.999
     if np.array_equal(ids.numpy()[0], jids):
-        _close(partials.sum(1)[0, :, :6], np.asarray(acc)[0, :K, :6], 1e-3, 1e-5)
-    # the plain step is the whole-image form cut into 256-pixel blocks
+        acc = np.asarray(acc)[0, :K]
+        counts = acc[:, 5:6]
+        want = np.where(counts > 0, acc[:, :5] / np.maximum(counts, 1.0), centers.numpy()[0])
+        _close(new_centers[0], want, 1e-4, 1e-4)
+    # the plain step's ids are the whole-image assignment
     full = tslic._assign_plain(feats[0], centers[0], W, ws, win2)
     np.testing.assert_array_equal(ids[0].numpy(), full.numpy())
-    assert partials.shape == (1, H * W // tslic_fused.PIXELS_PER_BLOCK, K, 6)
+    assert ids.dtype == torch.int32 and new_centers.shape == (1, K, 5)
+
+
+def _window_d2s(centers: torch.Tensor, H: int, W: int, ws: float, rows: slice) -> torch.Tensor:
+    """The window test's d2s of `_assign_plain` for the pixels of `rows`:
+    (B, len(rows) * W, K)."""
+    ws_t = torch.tensor(ws, dtype=torch.float32)
+    cy, cx = centers[..., 3][:, None, :] / ws_t, centers[..., 4][:, None, :] / ws_t
+    y = torch.arange(H, dtype=torch.float32)[rows]
+    py = y[:, None].expand(-1, W).reshape(1, -1, 1)
+    px = torch.arange(W, dtype=torch.float32)[None, :].expand(len(y), -1).reshape(1, -1, 1)
+    return (py * py + px * px) - 2.0 * (py * cy + px * cx) + (cy * cy + cx * cx)
+
+
+def _edge_centers(rng, n: int, H: int, W: int, ws: float, win2: float) -> np.ndarray:
+    """n centres each at sqrt(win2)(1 + e), |e| <= 2e-7, straight out from a
+    pixel on a tile's border (up from a top row, down from a bottom row, left
+    or right likewise), so that this pixel is also the point of the tile's
+    box nearest to the centre: the case where the candidate rule has no
+    slack but its margin. Random Lab values."""
+    T = tslic_fused.TILE
+    r = np.sqrt(win2) * (1 + rng.uniform(-2e-7, 2e-7, n))
+    c = np.zeros((n, 5), np.float32)
+    c[:, :3] = rng.normal(50, 20, (n, 3))
+    for i in range(n):
+        side = rng.integers(0, 4)
+        py, px = float(rng.integers(0, H)), float(rng.integers(0, W))
+        if side < 2:
+            t0 = T * rng.integers(0, -(-H // T))
+            py = float(t0) if side == 0 else float(min(t0 + T - 1, H - 1))
+            py += -r[i] if side == 0 else r[i]
+        else:
+            t0 = T * rng.integers(0, -(-W // T))
+            px = float(t0) if side == 2 else float(min(t0 + T - 1, W - 1))
+            px += -r[i] if side == 2 else r[i]
+        c[i, 3], c[i, 4] = py * ws, px * ws
+    return c
+
+
+@pytest.mark.parametrize("hw,K", [((224, 224), 100), ((61, 97), 12), ((448, 448), 100)])
+def test_tile_candidates_never_drop_a_centre_in_the_window(hw, K):
+    """K3's candidate rule keeps every centre that passes the fp32 window
+    test at some pixel of its tile: for seeded random centres, for centres
+    placed on the window's edge (within 2e-7 of it), and for a window
+    chosen so that one pixel's d2s equals win2 exactly."""
+    H, W = hw
+    rng = np.random.default_rng(H * W + K)
+    ws, win2 = tslic.slic_geometry(K, 10.0, H, W)
+    rand = np.zeros((K, 5), np.float32)
+    rand[:, 3] = rng.uniform(-0.2 * H, 1.2 * H, K) * ws
+    rand[:, 4] = rng.uniform(-0.2 * W, 1.2 * W, K) * ws
+    edge = _edge_centers(rng, K, H, W, ws, win2)
+    centers = torch.from_numpy(np.stack([rand, edge]))  # (2, K, 5)
+    # a window whose edge one pixel meets exactly: win2 = that pixel's d2s
+    y, k = int(rng.integers(0, H)), int(rng.integers(0, K))
+    exact = float(_window_d2s(centers[:1], H, W, ws, slice(y, y + 1))[0, int(rng.integers(0, W)), k])
+    ntx = -(-W // tslic_fused.TILE)
+    kept = 0
+    for w2 in (win2, exact):
+        cand = tslic_fused.tile_candidates_plain(centers, H, W, ws, w2)  # (2, tiles, K)
+        assert cand.shape == (2, tslic_fused.num_tiles(H, W), K)
+        hit_edge = 0
+        for y0 in range(0, H, tslic_fused.TILE):
+            rows = slice(y0, min(y0 + tslic_fused.TILE, H))
+            passes = _window_d2s(centers, H, W, ws, rows) <= w2  # (2, rows * W, K)
+            hit_edge += int((_window_d2s(centers, H, W, ws, rows) == w2).sum())
+            tile = (torch.arange(W) // tslic_fused.TILE + (y0 // tslic_fused.TILE) * ntx).repeat(rows.stop - y0)
+            assert not (passes & ~cand[:, tile]).any(), "a centre inside the window is not a candidate of its tile"
+            kept += int(passes.any(1).sum())
+        if w2 == exact:
+            assert hit_edge >= 1  # the exact-edge pixel is among those checked
+    assert kept > 0
+    # the list is a small part of K where the window is small against the image
+    frac = float(tslic_fused.tile_candidates_plain(centers[:1], H, W, ws, win2).float().mean())
+    assert frac < (0.5 if H * W > 20000 else 1.0)
+
+
+def _assign_with_candidates(feats, centers, width, ws, win2):
+    """K3's assignment written in torch: the windowed argmin over each
+    tile's candidates only, and the dense fallback for pixels with no
+    candidate in the window."""
+    B, _, HW = feats.shape
+    H = HW // width
+    cand = tslic_fused.tile_candidates_plain(centers, H, width, ws, win2)  # (B, tiles, K)
+    out = []
+    for b in range(B):
+        f = [feats[b, i][:, None] for i in range(5)]
+        c = [centers[b, :, i][None, :] for i in range(5)]
+        d2 = tslic._sum5([fi * fi for fi in f]) - 2.0 * tslic._sum5([fi * ci for fi, ci in zip(f, c)]) \
+            + tslic._sum5([ci * ci for ci in c])
+        d2s = _window_d2s(centers[b : b + 1], H, width, ws, slice(0, H))[0]
+        p = torch.arange(HW)
+        tile = (p // width) // tslic_fused.TILE * (-(-width // tslic_fused.TILE)) + (p % width) // tslic_fused.TILE
+        ok = (d2s <= win2) & cand[b][tile]
+        best = torch.argmin(torch.where(ok, d2, tslic.BIG), dim=1)
+        orphan = ~ok.any(1)
+        out.append(torch.where(orphan, torch.argmin(d2s, dim=1), best))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("hw,K", [((64, 64), 12), ((61, 97), 20)])
+def test_candidate_assignment_equals_dense_assignment(hw, K):
+    """The candidate-restricted assignment gives the dense ids on perturbed
+    centres and when a block of centres moves away, leaving orphans."""
+    H, W = hw
+    rng = np.random.default_rng(9)
+    ws, win2 = tslic.slic_geometry(K, 10.0, H, W)
+    imgs = torch.from_numpy(rng.random((2, 3, H, W), dtype=np.float32))
+    feats = tslic.pixel_features(tslic.rgb_to_lab(imgs), ws)
+    centers = feats[:, :, tslic._init_index(K, H, W)].transpose(1, 2)
+    centers = centers + torch.from_numpy(rng.standard_normal(centers.shape).astype(np.float32))
+    centers[1, : K // 2, 3] += 3 * H * ws  # half the centres leave: their pixels become orphans
+    want = torch.stack([tslic._assign_plain(feats[b], centers[b], W, ws, win2) for b in range(2)])
+    got = _assign_with_candidates(feats, centers, W, ws, win2)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    d2s = _window_d2s(centers[1:], H, W, ws, slice(0, H))[0]
+    assert int((d2s.min(1).values > win2).sum()) > 0  # orphans met
 
 
 def test_slic_batch_matches_jax():

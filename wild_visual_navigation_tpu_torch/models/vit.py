@@ -76,9 +76,10 @@ class Attention(nn.Module):
         B, N, D = x.shape
         H = self.num_heads
         qkv = _linear(x, self.qkv).reshape(B, N, 3, H, D // H).permute(2, 0, 3, 1, 4)
-        q, k, v = (t.contiguous() for t in qkv.unbind(0))  # (B, H, N, Dh) each
+        q, k, v = qkv.unbind(0)  # (B, H, N, Dh) views of the qkv product, no copies
         attend = flash_attention if self.attention_impl == "flash" else xla_attention
         out = attend(q, k, v, (D // H) ** -0.5)
+        # K1 writes a (B, N, H, Dh) buffer, so on the card this is a view
         return _linear(out.transpose(1, 2).reshape(B, N, D), self.proj)
 
 

@@ -9,7 +9,9 @@ build happens at first use, never at import: the CPU tests import every
 module and a CPU tensor never reaches this file.
 
 Every C entry point returns `cudaGetLastError()` after its launch;
-`check` raises on anything but 0.
+`check` raises on anything but 0. ptxas reports each kernel's registers,
+shared memory and spills while compiling (`-Xptxas -v`); the build keeps
+that report beside the library (`resource_report`).
 """
 
 from __future__ import annotations
@@ -31,14 +33,19 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+COMPILE_FLAGS = ("-Xptxas", "-v")  # per-kernel registers, shared memory and spills, kept in the build's report
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (every pointer, the stream included, is c_void_p)
 SIGNATURES = {
-    "wvn_flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, host int64[12] of (B, H, S) strides, B, H, S, D, dtype, scale, stream
+    "wvn_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "wvn_flash_attention_smem_bytes": [],
     "wvn_pixelwise_score": [_P] * 11 + [_I, _I, _I, _I, _I, _F, _P],
     "wvn_pixelwise_hidden_width": [],
-    "wvn_slic_step": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # feats, centers, ids, new_centers, partials, mask, rowsums, rowmask, tickets, B, H, W, K, ws, win2, stream
+    "wvn_slic_step": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P],
+    "wvn_slic_step_smem_bytes": [_I, _I, _I],
     "wvn_fill_hulls": [_P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -63,23 +70,26 @@ def _sources() -> list[Path]:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _run(cmds: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with the output of any that fails."""
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel and return their outputs; raise with
+    the output of any that fails."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
-    failed = []
+    failed, outs = [], []
     for cmd, proc in zip(cmds, procs):
         out, _ = proc.communicate()
+        outs.append(out)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build() -> Path:
@@ -95,13 +105,23 @@ def build() -> Path:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
         objs = [Path(tmp_dir) / f"{src.stem}.o" for src in _sources()]
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(_sources(), objs)])
+        outs = _run([[nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-c", "-o", str(o), str(src)]
+                     for src, o in zip(_sources(), objs)])
         tmp = Path(tmp_dir) / lib_path.name
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        report = "".join(f"== {src.name}\n{out}" for src, out in zip(_sources(), outs))
+        lib_path.with_suffix(".ptxas.txt").write_text(report)
         os.replace(tmp, lib_path)  # atomic: a concurrent loader sees the old name or the whole file
     build_seconds = time.perf_counter() - t0
     print(f"[wvn_torch] built {lib_path.name} from {len(objs)} sources in {build_seconds:.2f} s", flush=True)
     return lib_path
+
+
+def resource_report() -> str:
+    """ptxas's per-kernel report (registers, shared memory, spills) from the
+    build of the current library."""
+    report = build().with_suffix(".ptxas.txt")
+    return report.read_text() if report.exists() else ""
 
 
 def library() -> ctypes.CDLL:

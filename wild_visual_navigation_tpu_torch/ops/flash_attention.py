@@ -3,9 +3,17 @@
 `flash_attention` launches csrc/flash_attention.cu for CUDA tensors and
 uses `xla_attention`, the plain einsum form, for CPU tensors. Layout is
 the JAX package's (B, H, S, D); output is in q.dtype.
+
+On the card q, k and v may be strided views (a contiguous D axis, any
+strides for B, H and S, e.g. the slices of a (B, S, 3, H, D) qkv product),
+and the output is a (B, H, S, D) view of a (B, S, H, D) buffer, so
+`out.transpose(1, 2)` is contiguous. bf16 runs on the tensor cores
+(wgmma, TMA loads), fp32 on the SIMT pipes.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,6 +32,22 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: f
     return out.to(q.dtype)
 
 
+def _outer_strides(name: str, t: torch.Tensor) -> list[int]:
+    """The (B, H, S) strides of t in elements, checked for the kernel: a
+    contiguous last axis and, as TMA needs, 16-byte aligned base and
+    strides. An axis of size 1 is never stepped, so it gets the tensor's
+    extent as a harmless stride."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: the head axis must be contiguous, got strides {t.stride()}")
+    per16 = 16 // t.element_size()
+    extent = max(s * n for s, n in zip(t.stride(), t.shape))
+    extent = -(-max(extent, 1) // per16) * per16
+    strides = [s if n > 1 else extent for s, n in zip(t.stride()[:3], t.shape[:3])]
+    if t.data_ptr() % 16 or any(s % per16 for s in strides):
+        raise ValueError(f"{name}: base and (B, H, S) strides must be 16-byte aligned, got strides {t.stride()}")
+    return strides
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float = 1.0) -> torch.Tensor:
     """softmax(q kᵀ · sm_scale) v. q, k, v: (B, H, S, D).
 
@@ -40,13 +64,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale:
     B, H, S, D = q.shape
     if D != 64:
         raise ValueError(f"flash_attention: the kernel takes head dim 64, got {D}")
-    _cuda.require_cuda("flash_attention", q, k, v)
-    out = torch.empty_like(q)
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q, k, v on different devices: {q.device}, {k.device}, {v.device}")
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in _outer_strides("flash_attention", t)))
     lib = _cuda.library()
     with torch.cuda.device(q.device):
         err = lib.wvn_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B * H, S, D, _DTYPES[q.dtype], float(sm_scale), _cuda.stream_of(q),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ctypes.addressof(strides),
+            B, H, S, D, _DTYPES[q.dtype], float(sm_scale), _cuda.stream_of(q),
         )
     _cuda.check(err, "flash_attention")
     flash_attention.launches += 1
