@@ -14,24 +14,26 @@ PyTorch version at the main path's shapes, and drives two paths:
     mission assets/sequences/demo_mission.npz replayed in stamp order,
     each frame through the frame function into the estimator's mission
     buffer, each robot state through the supervision generator into a
-    footprint reprojection (K4) and a train step; then the learnt head
-    hot-swapped into the frame function, and the same replay on the CPU
-    for comparison.
+    footprint reprojection (K4: the hull and the fill in one launch) and a
+    train step; then the learnt head hot-swapped into the frame function,
+    and the same replay on the CPU for comparison.
 
 It checks each path's outputs and that each went through its kernels, and
 times the kernels, the frame, a supervision flush and a train step. It
-also prints K1's and K3's registers, shared memory and spills (ptxas's
-report of the build), the count of HGMMA instructions in the library's
-SASS (K1's bf16 body runs on the tensor cores: it must be above 0), K1
-at five ViT shapes beside SDPA, K1 on strided views of a qkv buffer, K3
-with the bound of the (pixel, candidate) pairs it searched, `slic_batch`
-at B=1 and B=4, and a torch.profiler breakdown of 10 frames. Every phase
-raises on failure.
+also prints each kernel body's registers, shared memory and spills
+(ptxas's report of the build), the tensor-core instructions in the SASS by
+function (HGMMA in K1's bf16 body, HMMA in K2: each must be above 0), K1
+at five ViT shapes beside SDPA, K1 on strided views of a qkv buffer, K2 at
+B=1, B=4 and a ragged output, K3 with the bound of the (pixel, candidate)
+pairs it searched, `slic_batch` at B=1 and B=4, K4 from points (hulls
+bitwise equal to `convex_hull`) and the fill alone, and a torch.profiler
+breakdown of 10 frames. Every phase raises on failure.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches on the main path, errors, times and
-bounds. Without a CUDA device, or outside the repository, it exits
-non-zero and prints no result.
+bounds (K4's of the fill alone, as the TPU kernel it replaces; its launch
+from points under from_points_* keys). Without a CUDA device, or outside
+the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -48,12 +50,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 N_TIMED = 25  # timed runs, each on its own inputs, after WARMUP runs
 WARMUP = 3
-# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense):
-# the least time a kernel's work can take is the larger of its bytes over
-# the memory rate and, for each type of operation, its operations over
-# that type's rate.
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense;
+# packed bf16x2 outside the tensor cores, twice the fp32 rate, from NVIDIA's
+# H100 whitepaper, 133.8 TFLOP/s): the least time a kernel's work can take
+# is the larger of its bytes over the memory rate and, for each type of
+# operation, its operations over that type's rate.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16_tensor": 989e12, "fp32": 67e12}
+PEAK_FLOPS = {"bf16_tensor": 989e12, "bf16x2": 133.8e12, "fp32": 67e12}
 # K1's shapes: the main path's, then the ViT configurations with longer sequences
 ATTN_SHAPES = {
     (1, 6, 785, 64): "ViT-S/8 at 224, the main path",
@@ -109,35 +112,55 @@ def wall_ms(fn, inputs) -> float:
 
 
 def kernel_resources(report: str) -> list[str]:
-    """K1's and K3's registers, static shared memory and spills from ptxas's
-    report of the build (-Xptxas -v), with each kernel's dynamic shared
-    memory at the main path's shapes."""
+    """Each kernel body's registers, static shared memory and spills from
+    ptxas's report of the build (-Xptxas -v), with its dynamic shared memory
+    at the main path's shapes."""
     from wild_visual_navigation_tpu_torch.ops import _cuda
 
     lib = _cuda.library()
-    dynamic = {"flash_fwd_bf16_kernel": lib.wvn_flash_attention_smem_bytes(), "flash_fwd_f32_kernel": 0,
-               "slic_step_kernel": lib.wvn_slic_step_smem_bytes(100, 224, 224)}
-    lines, name, spills = [], None, ""
+    # name in the report -> (label, dynamic shared memory in bytes, at which shape)
+    kernels = {"flash_fwd_bf16_kernel": ("K1 flash_fwd_bf16_kernel", lib.wvn_flash_attention_smem_bytes(), ""),
+               "flash_fwd_f32_kernel": ("K1 flash_fwd_f32_kernel", 0, ""),
+               "pixelwise_score_kernel": ("K2 pixelwise_score_kernel", lib.wvn_pixelwise_score_smem_bytes(256),
+                                          " at K1=256"),
+               "slic_step_kernel": ("K3 slic_step_kernel", lib.wvn_slic_step_smem_bytes(100, 224, 224),
+                                    " at K=100, 224x224"),
+               "hull_fill_kernelILb1E": ("K4 hull_fill_kernel<march> (points to masks)", 0, ""),
+               "hull_fill_kernelILb0E": ("K4 hull_fill_kernel<fill alone>", 0, "")}
+    lines, key, spills = [], None, ""
     for line in report.splitlines():
         if "Function properties for" in line:
-            name = next((k for k in dynamic if k in line), None)
-        elif name and "spill" in line:
+            key = next((k for k in kernels if k in line), None)
+        elif key and "spill" in line:
             spills = line.strip()
-        elif name and "Used" in line:
-            used = line.split(":", 1)[1].strip()
-            at = " at K=100, 224x224" if name.startswith("slic") else ""
-            lines.append(f"{name}: {used}; {spills}; dynamic smem {dynamic[name]} bytes{at}")
-            name = None
+        elif key and "Used" in line:
+            label, dyn, at = kernels[key]
+            lines.append(f"{label}: {line.split(':', 1)[1].strip()}; {spills}; dynamic smem {dyn} bytes{at}")
+            key = None
     return lines
 
 
-def hgmma_count(lib_path) -> int:
-    """Number of HGMMA (wgmma) instructions in the library's SASS."""
+def tensor_core_counts(lib_path) -> dict[str, dict[str, int]]:
+    """HMMA (mma.sync) and HGMMA (wgmma) instructions in the library's SASS,
+    by kernel function (cuobjdump -sass names each function)."""
     import os
 
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     out = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True, check=True, timeout=300)
-    return sum("HGMMA" in line for line in out.stdout.splitlines())
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = {"HMMA": 0, "HGMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if op in line:
+                    counts[fn][op] += 1
+    return counts
+
+
+def count_in(counts: dict, name: str, op: str) -> int:
+    return sum(c[op] for fn, c in counts.items() if name in fn)
 
 
 def require(cond: bool, what: str) -> None:
@@ -225,16 +248,16 @@ def footprint_scene(rng, B: int, K: np.ndarray):
             np.stack(fps).astype(np.float32))
 
 
-def scene_hulls(dev, rng, B: int, K: np.ndarray, size: int):
-    """Convex hulls (B, 32, 2) of projected footprints, on `dev`."""
+def scene_points(dev, rng, B: int, K: np.ndarray, size: int):
+    """Projected footprints (B, 64, 2) and their masks (B, 64) (in front of
+    the camera), on `dev`: what the supervision flush hands K4."""
     import torch
 
     from wild_visual_navigation_tpu_torch.ops.projection import Camera, project_points
-    from wild_visual_navigation_tpu_torch.ops.rasterize import convex_hull
 
     Ks, poses, fps = (torch.from_numpy(a).to(dev) for a in footprint_scene(rng, B, K))
     p2d, _, valid_z = project_points(Camera(Ks, size, size), poses, fps)
-    return convex_hull(p2d, valid_z, max_hull=32)
+    return p2d, valid_z
 
 
 def replay_learning(dev, frame, cg_state, seq: dict, size: int, num_segments: int, feature_dim: int,
@@ -333,13 +356,8 @@ def main() -> int:
     from wild_visual_navigation_tpu_torch.ops import _cuda
     from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention, xla_attention
     from wild_visual_navigation_tpu_torch.ops.pixelwise_fused import fused_precompute, score_pixels, score_pixels_plain
-    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import (
-        fill_edges_plain,
-        fill_hulls,
-        fill_hulls_plain,
-        hull_edges,
-        launch_fill,
-    )
+    from wild_visual_navigation_tpu_torch.ops.rasterize import convex_hull
+    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls, fill_hulls_plain, hull_fill
     from wild_visual_navigation_tpu_torch.ops.slic import _init_index, pixel_features, rgb_to_lab, slic_batch, slic_geometry
     from wild_visual_navigation_tpu_torch.ops.slic_fused import (
         SlicScratch,
@@ -367,10 +385,14 @@ def main() -> int:
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s ({built})", flush=True)
     for line in kernel_resources(_cuda.resource_report()):
         print(f"[resources] {line}")
-    hgmma = hgmma_count(_cuda.build())
-    print(f"[resources] HGMMA instructions in the library's SASS (cuobjdump -sass): {hgmma}; all are K1's bf16 body, "
-          f"the only wgmma user")
-    require(hgmma > 0, "K1 (bf16) runs on the tensor cores: HGMMA in its SASS")
+    tc = tensor_core_counts(_cuda.build())
+    hgmma_k1 = count_in(tc, "flash_fwd_bf16_kernel", "HGMMA")
+    hmma_k2 = count_in(tc, "pixelwise_score_kernel", "HMMA")
+    print(f"[resources] tensor-core instructions in the SASS (cuobjdump -sass), by function: K1's bf16 body "
+          f"{hgmma_k1} HGMMA (wgmma); K2 {hmma_k2} HMMA (mma.sync m16n8k16); the library in all "
+          f"{sum(c['HGMMA'] for c in tc.values())} HGMMA, {sum(c['HMMA'] for c in tc.values())} HMMA")
+    require(hgmma_k1 > 0, "K1 (bf16) runs on the tensor cores: HGMMA in its SASS")
+    require(hmma_k2 > 0, "K2's 256 -> 32 layer runs on the tensor cores: HMMA in its SASS")
 
     g = torch.Generator(device=dev).manual_seed(0)
     head_params, head_cg, head_step = load_head_npz(ROOT / "assets/checkpoints/replay_demo_head_torch.npz")
@@ -408,19 +430,21 @@ def main() -> int:
         require(err <= tol and out.stride() == (785 * 6 * 64, 64, 6 * 64, 1), f"K1 on strided views, {dtype}")
     results["flash_attention"] = {"max_abs_err": attn_cases[0][2]}
 
-    feat = torch.randn(1, D, 28, 28, device=dev, generator=g)
-    with torch.no_grad():
-        ops = fused_precompute(mlp, feat, 224, 224)
-        trav, reco = score_pixels(ops, D)
-        trav_p, reco_p = score_pixels_plain(ops, D)
-    terr = float((trav - trav_p).abs().max())
-    rerr = float((reco - reco_p).abs().max())
-    rbound = float(((reco - reco_p).abs() - 1e-3 * reco_p.abs()).max())
-    print(f"[K2 pixelwise_score] feat (1, 384, 28, 28) -> 224x224, demo head (step {head_step}): trav max abs err "
-          f"{terr:.3e} (tol 2e-3); reco max abs err {rerr:.3e} at max |reco| {float(reco_p.abs().max()):.3e} "
-          f"(tol rtol 1e-3 + atol 1e-4)")
-    require(terr <= 2e-3 and rbound <= 1e-4, "K2 against its plain version")
-    results["pixelwise_score"] = {"max_abs_err": max(terr, rerr)}
+    for B, out in ((1, (224, 224)), (4, (224, 224)), (1, (23, 37))):
+        feat = torch.randn(B, D, 28, 28, device=dev, generator=g)
+        with torch.no_grad():
+            ops = fused_precompute(mlp, feat, *out)
+            trav, reco = score_pixels(ops, D)
+            trav_p, reco_p = score_pixels_plain(ops, D)
+        terr = float((trav - trav_p).abs().max())
+        rerr = float((reco - reco_p).abs().max())
+        rbound = float(((reco - reco_p).abs() - 1e-3 * reco_p.abs()).max())
+        print(f"[K2 pixelwise_score] feat ({B}, 384, 28, 28) -> {out[0]}x{out[1]}, demo head (step {head_step}): trav "
+              f"max abs err {terr:.3e} (tol 2e-3); reco max abs err {rerr:.3e} at max |reco| "
+              f"{float(reco_p.abs().max()):.3e} (tol rtol 1e-3 + atol 1e-4)")
+        require(terr <= 2e-3 and rbound <= 1e-4, f"K2 against its plain version at B={B}, {out}")
+        if "pixelwise_score" not in results:
+            results["pixelwise_score"] = {"max_abs_err": max(terr, rerr)}
 
     img = torch.rand(1, 3, 224, 224, device=dev, generator=g)
     ws, win2 = slic_geometry(100, 10.0, 224, 224)
@@ -452,17 +476,30 @@ def main() -> int:
     # cameras at 224 px, hulls of at most 32 vertices (33 edges with the gate)
     K224 = np.array([[134.4, 0, 112], [0, 134.4, 112], [0, 0, 1]])  # the demo camera scaled 64 -> 224
     rng = np.random.default_rng(0)
-    hulls, hull_valid = scene_hulls(dev, rng, 32, K224, 224)
-    masks = fill_hulls(hulls, hull_valid, 224, 224)
+    p2d, valid_z = scene_points(dev, rng, 32, K224, 224)
+    masks_f, hulls_f, hv_f = hull_fill(p2d, valid_z, 224, 224, 32)
+    hulls, hull_valid = convex_hull(p2d, valid_z, max_hull=32)
     masks_p = fill_hulls_plain(hulls, hull_valid, 224, 224)
+    hull_bitwise = torch.equal(hulls_f.view(torch.int32), hulls.view(torch.int32)) and torch.equal(hv_f, hull_valid)
+    differ_f = int((masks_f != masks_p).sum())
+    print(f"[K4 hull_fill] 32 footprints x 64 points -> hulls (32, 32, 2) and 32x224x224 masks in one launch: hulls "
+          f"bitwise equal to convex_hull: {hull_bitwise}; {int(hv_f.sum())} hull vertices; {differ_f} of "
+          f"{masks_f.numel()} pixels differ from convex_hull + fill_hulls_plain (must be 0)")
+    require(hull_bitwise and differ_f == 0, "K4 from points identical to convex_hull + the plain fill")
+    masks = fill_hulls(hulls, hull_valid, 224, 224)
     differ = int((masks != masks_p).sum())
     degenerate = fill_hulls(hulls, torch.zeros_like(hull_valid), 224, 224)
-    print(f"[K4 fill_hulls] (32, 32, 2) hulls -> 32x224x224: {int(masks.sum())} pixels inside; {differ} of "
-          f"{masks.numel()} pixels differ from the plain version (must be 0); degenerate hulls fill "
-          f"{int(degenerate.sum())} pixels (must be 0)")
-    require(differ == 0, "K4 identical to its plain version")
+    nan_hulls = hulls.clone()
+    nan_hulls[::4, 1, 0] = float("nan")  # a NaN edge: the per-pixel evaluation, NaN propagating
+    nan_differ = int((fill_hulls(nan_hulls, hull_valid, 224, 224) != fill_hulls_plain(nan_hulls, hull_valid, 224,
+                                                                                       224)).sum())
+    print(f"[K4 fill_hulls] the fill alone, (32, 32, 2) hulls -> 32x224x224: {int(masks.sum())} pixels inside; "
+          f"{differ} of {masks.numel()} pixels differ from the plain version (must be 0); with NaN vertices in 8 "
+          f"hulls {nan_differ} differ (must be 0); degenerate hulls fill {int(degenerate.sum())} pixels (must be 0)")
+    require(differ == 0 and nan_differ == 0, "K4's fill identical to its plain version")
     require(int(masks.sum()) > 0 and not bool(degenerate.any()), "K4 fills footprints and no degenerate hull")
-    results["fill_hulls"] = {"max_abs_err": float((masks.float() - masks_p.float()).abs().max())}
+    results["fill_hulls"] = {"max_abs_err": float((masks.float() - masks_p.float()).abs().max()),
+                             "from_points_max_abs_err": float((masks_f.float() - masks_p.float()).abs().max())}
 
     # ---- 4. the main path
     size = node.network_input_image_height
@@ -610,9 +647,22 @@ def main() -> int:
         p_ms = device_ms(lambda o: score_pixels_plain(o, D), opss)
         pre_ms = device_ms(lambda f: fused_precompute(mlp, f, 224, 224),
                            [(torch.randn(1, D, 28, 28, device=dev, generator=g),) for _ in range(WARMUP + N_TIMED)])
+    hw_px = 224 * 224
+    # K2's bound. Bytes: its operands (hw at 28 patch rows, zsts, the weights and row tables) in, the two
+    # fp32 maps out. Operations per pixel, with K1 = 256 and K = 32: the K1 -> K product on the tensor cores
+    # (2 K K1); the H lerp of hw, two products and a sum per channel in bf16x2 (3 K1); in fp32 the bias and
+    # relu (2 K), the logit (2 K), the quadratic form over the upper triangle of the symmetric M (K (K + 1)),
+    # the z lerp (3 K), 2 x1 . (v - z) (3 K) and the rest of reco and the sigmoid (16)
+    K1, K = opss[0][0].w1t.shape[1], opss[0][0].w1t.shape[0]
+    k2_ops = {"bf16_tensor": 2 * K * K1 * hw_px, "bf16x2": 3 * K1 * hw_px, "fp32": (K * (K + 1) + 10 * K + 16) * hw_px}
+    k2_bytes = sum(x.numel() * x.element_size() for x in opss[0][0]) + 2 * hw_px * 4
+    b2 = bound(k2_bytes, k2_ops)
+    parts = ", ".join(f"{kind} {n / PEAK_FLOPS[kind] * 1e3:.6f} ms" for kind, n in k2_ops.items())
     print(f"[time] K2 pixelwise_score 224x224 from (1, 384, 28, 28): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-          f"(torch precompute before either: {pre_ms:.4f} ms) | {card}")
-    results["pixelwise_score"].update(ms=k_ms, plain_ms=p_ms, library_ms=None)
+          f"(torch precompute before either: {pre_ms:.4f} ms); bound {b2['bound_ms']:.6f} ms ({b2['bound_by']}: "
+          f"{k2_bytes} bytes {k2_bytes / PEAK_BYTES_PER_S * 1e3:.6f} ms; {parts}), share of the bound "
+          f"{b2['bound_ms'] / k_ms:.3f} | {card}")
+    results["pixelwise_score"].update(ms=k_ms, plain_ms=p_ms, library_ms=None, **b2)
 
     steps = []
     for _ in range(WARMUP + N_TIMED):
@@ -623,7 +673,6 @@ def main() -> int:
     p_ms = device_ms(lambda f, c: slic_step_plain(f, c, 224, ws, win2), steps)
     pairs, orphans = zip(*(slic_work(c, 224, 224, ws, win2) for _, c in steps[WARMUP:]))
     pairs, orphans = float(np.mean(pairs)), float(np.mean(orphans))
-    hw_px = 224 * 224
     # features (5 x HW fp32) and centres in, ids and new centres out; ~20 fp32 operations per (pixel,
     # candidate) pair and per (orphan, centre) pair, 6 sums per pixel
     k3_bytes = 5 * hw_px * 4 + 100 * 5 * 4 + hw_px * 4 + 100 * 5 * 4
@@ -642,16 +691,35 @@ def main() -> int:
         print(f"[time] slic_batch B={B} at 224x224, K=100, 10 iterations (11 K3 launches): {sb_dev:.4f} ms between "
               f"CUDA events, {sb_wall:.4f} ms on the host clock | {card}")
 
-    hull_sets = [scene_hulls(dev, rng, 32, K224, 224) for _ in range(WARMUP + N_TIMED)]
-    w_ms = device_ms(lambda h, v: fill_hulls(h, v, 224, 224), hull_sets)
-    wp_ms = device_ms(lambda h, v: fill_hulls_plain(h, v, 224, 224), hull_sets)
-    edge_sets = [(hull_edges(h, v),) for h, v in hull_sets]
-    k_ms = device_ms(lambda e: launch_fill(e, 224, 224), edge_sets)
-    p_ms = device_ms(lambda e: fill_edges_plain(e, 224, 224), edge_sets)
-    print(f"[time] K4 fill_hulls (32, 33, 3) edge lines -> 32x224x224 (one per supervision flush): kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms; with the torch edge construction before each: wrapper {w_ms:.4f} ms, plain "
-          f"{wp_ms:.4f} ms | {card}")
-    results["fill_hulls"].update(ms=k_ms, plain_ms=p_ms, library_ms=None)
+    point_sets = [scene_points(dev, rng, 32, K224, 224) for _ in range(WARMUP + N_TIMED)]
+    hull_sets = [convex_hull(p, v, max_hull=32) for p, v in point_sets]
+    fa_ms = device_ms(lambda h, v: fill_hulls(h, v, 224, 224), hull_sets)
+    fap_ms = device_ms(lambda h, v: fill_hulls_plain(h, v, 224, 224), hull_sets)
+    k_ms = device_ms(lambda p, v: hull_fill(p, v, 224, 224, 32), point_sets)
+    p_ms = device_ms(lambda p, v: fill_hulls_plain(*convex_hull(p, v, max_hull=32), 224, 224), point_sets)
+    # K4's bounds. From points: points and masks in (64 x (8 + 1) bytes per footprint), hulls (32 x (8 + 1)
+    # bytes) and masks (one byte per pixel) out; the march's cross products at fp32, 3 operations each
+    # (two products, a difference), N^2 per step, over the steps these footprints take (a hull of nv >= 3
+    # vertices takes min(nv, 31) steps), plus some 9 per point and step. The fill alone: hulls in, masks out.
+    N, E = 64, 32
+    nv = torch.stack([hv.sum(1) for _, hv in hull_sets[WARMUP:]]).float()
+    steps = float(torch.where(nv >= 3, nv.clamp(max=E - 1), 0.0).sum(1).mean())
+    b4 = bound(32 * N * 9 + 32 * E * 9 + 32 * hw_px, {"fp32": steps * (3 * N * N + 9 * N)})
+    b4_fill = bound(32 * E * 9 + 32 * hw_px, {"fp32": 32 * (E + 1) * 6})
+    per_pixel = bound(32 * E * 9 + 32 * hw_px, {"fp32": 5 * 32 * hw_px * (E + 1)})
+    print(f"[time] K4 hull_fill 32 footprints x 64 points -> hulls and 32x224x224 masks, one launch (one per supervision "
+          f"flush): kernel {k_ms:.4f} ms, plain (convex_hull + fill_hulls_plain) {p_ms:.4f} ms; bound "
+          f"{b4['bound_ms']:.6f} ms ({b4['bound_by']}; {steps:.0f} march steps over the 32 hulls), share of the bound "
+          f"{b4['bound_ms'] / k_ms:.3f} | {card}")
+    print(f"[time] K4 fill_hulls, the fill alone, (32, 32, 2) hulls -> 32x224x224: kernel {fa_ms:.4f} ms, plain "
+          f"{fap_ms:.4f} ms; bound {b4_fill['bound_ms']:.6f} ms ({b4_fill['bound_by']}), share of the bound "
+          f"{b4_fill['bound_ms'] / fa_ms:.3f}; note: a per-pixel evaluation of all 33 edges would be "
+          f"5 x 32 x HW x 33 fp32 operations, {per_pixel['bound_ms']:.6f} ms at the fp32 peak | {card}")
+    # ms, plain_ms and bound_ms are of the fill alone, the function that `replaces` names; the launch from
+    # points (the flush's route, the gift wrap included) under from_points_*
+    results["fill_hulls"].update(ms=fa_ms, plain_ms=fap_ms, library_ms=None, **b4_fill, from_points_ms=k_ms,
+                                 from_points_plain_ms=p_ms, from_points_bound_ms=b4["bound_ms"],
+                                 from_points_bound_by=b4["bound_by"])
 
     updates = [rep["updates"][i % len(rep["updates"])] for i in range(WARMUP + N_TIMED)]
     f_dev = device_ms(est._reproject_update, updates)
@@ -672,15 +740,6 @@ def main() -> int:
     print(f"[time] frame B=1 (64x64 demo frame -> 224x224): latency {lat1:.3f} ms on the host clock | {card}")
     print(f"[time] frames_batch B=4: latency {lat4:.3f} ms ({lat4 / 4:.3f} ms per frame) | {card}")
     profile_frames(frame, cg_state, demo, dev, card)
-
-    # bounds at the shapes timed above (B=1 frame; K4 at the fan-out of 32)
-    # hw (28 patch rows x 224 x 256 bf16), zsts (28 x 224 x 35 fp32), two fp32 maps out; per pixel the
-    # 256 -> 32 product in bf16 and the bf16-rounded H lerp, reco quadratic form and head in fp32
-    results["pixelwise_score"].update(bound(28 * 224 * 256 * 2 + 28 * 224 * 35 * 4 + 2 * hw_px * 4,
-                                            {"bf16_tensor": 2 * 32 * 256 * hw_px,
-                                             "fp32": (3 * 256 + 2 * 33 * 32 + 4 * 32 + 16) * hw_px}))
-    # 33 edge lines per hull in, one mask byte per pixel out; 5 fp32 operations per edge and pixel
-    results["fill_hulls"].update(bound(32 * 33 * 3 * 4 + 32 * hw_px, {"fp32": 5 * 32 * hw_px * 33}))
 
     sources = {
         "flash_attention": ("flash_attention.cu", "wild_visual_navigation_tpu/ops/flash_attention.py:132"),

@@ -28,7 +28,7 @@ from wild_visual_navigation_tpu.utils import lie as jlie
 from wild_visual_navigation_tpu_torch.ops import projection as tproj
 from wild_visual_navigation_tpu_torch.ops import rasterize as trast
 from wild_visual_navigation_tpu_torch.ops import segment_ops as tseg
-from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls, fill_hulls_plain, hull_edges
+from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_edges_plain, fill_hulls, fill_hulls_plain, hull_edges
 from wild_visual_navigation_tpu_torch.traversability.nodes import SupervisionNode
 from wild_visual_navigation_tpu_torch.utils import lie as tlie
 
@@ -305,6 +305,98 @@ def test_fill_hulls_nan_fills_nothing():
     ok = torch.ones((1, 4), dtype=torch.bool)
     assert int(fill_hulls_plain(hulls, ok, 12, 12).sum()) == 0
     assert int(np.asarray(fill_hulls_pallas(hulls.numpy(), ok.numpy(), 12, 12, block_h=4, interpret=True)).sum()) == 0
+
+
+# K4 on the card finds each row's span from per-edge thresholds (see
+# csrc/fill_hulls.cu). Its premise and its span rule, in torch on the CPU.
+
+
+def _edge_passes(a, b, c, H, W):
+    """(E, H, W) bool: each edge's test at every pixel, in the plain fill's
+    fp32 rounding ((a·x) + (b·y)) + c >= -1e-6."""
+    xs = torch.arange(W, dtype=torch.float32)[None, None, :]
+    ys = torch.arange(H, dtype=torch.float32)[None, :, None]
+    return a[:, None, None] * xs + b[:, None, None] * ys + c[:, None, None] >= -1e-6
+
+
+def _premise_edges(kind, rng, H, W):
+    """Seeded edge lines (a, b, c) of one kind, as float32 tensors."""
+    n = 64
+    if kind == "random":
+        a, b = rng.uniform(-40, 40, n), rng.uniform(-40, 40, n)
+        c = rng.uniform(-40, 40, n) * max(H, W)
+    elif kind == "tiny_slopes":
+        a = rng.choice([-1, 1], n) * 10.0 ** rng.uniform(-7, -3, n)
+        b = rng.choice([-1, 1], n) * 10.0 ** rng.uniform(-7, 1, n)
+        c = rng.uniform(-1e-3, 1e-3, n)
+        a[:4] = [1e-7, -1e-7, 0.0, -0.0]
+    else:  # knife edges: c puts the value at a chosen pixel on the threshold, or one ulp either side
+        a, b = rng.uniform(-3, 3, n), rng.uniform(-3, 3, n)
+        x0, y0 = rng.integers(0, W, n).astype(np.float32), rng.integers(0, H, n).astype(np.float32)
+        s = (a.astype(np.float32) * x0 + b.astype(np.float32) * y0).astype(np.float32)
+        c = (np.float32(-1e-6) - s).astype(np.float32)
+        c = np.where(np.arange(n) % 3 == 1, np.nextafter(c, np.float32(np.inf)), c)
+        c = np.where(np.arange(n) % 3 == 2, np.nextafter(c, np.float32(-np.inf)), c)
+    a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+    gate = np.float32(1e30)
+    a, b, c = np.r_[a, 0, 0], np.r_[b, 0, 0], np.r_[c, gate, -gate]  # the gate edge, both ways
+    return torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(c)
+
+
+@pytest.mark.parametrize("kind", ["random", "tiny_slopes", "knife_edge"])
+def test_k4_premise_each_edge_passes_on_a_prefix_or_a_suffix(kind):
+    """Along every row, each edge's pass set is a suffix (a > 0), a prefix
+    (a < 0), or all or none of the row (a = 0)."""
+    H, W = 61, 97
+    a, b, c = _premise_edges(kind, np.random.default_rng(7), H, W)
+    p = _edge_passes(a, b, c, H, W)
+    flips = (p[..., 1:] != p[..., :-1]).sum(-1)  # (E, H)
+    assert int(flips.max()) <= 1
+    rising = (~p[..., 0] & p[..., -1]) | (flips == 0)
+    falling = (p[..., 0] & ~p[..., -1]) | (flips == 0)
+    assert bool(rising[a > 0].all()) and bool(falling[a < 0].all()) and bool((flips[a == 0] == 0).all())
+    if kind == "knife_edge":
+        assert 0 < int(p.sum()) < p.numel()  # the thresholds fall inside the rows
+
+
+def _span_fill(edges: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Test oracle of K4's fill: each edge's threshold along each row by a
+    binary search over the integer x, evaluating the plain fill's own
+    expression, the row's span as the intersection, and the per-pixel
+    evaluation for a hull whose edges could overflow or are not finite.
+    edges (B, E + 1, 3) -> (B, H, W) bool."""
+    B = edges.shape[0]
+    a, b, c = (edges[..., k, None] for k in range(3))  # (B, E + 1, 1)
+    by = b * torch.arange(H, dtype=torch.float32)[None, None, :]  # (B, E + 1, H)
+
+    def rises(x):  # monotone False -> True along x (x == W is True)
+        xc = x.clamp(max=W - 1).float()
+        p = a * xc + by + c >= -1e-6
+        return torch.where(x >= W, True, torch.where(a < 0, ~p, p))
+
+    lo = torch.zeros(by.shape, dtype=torch.long)
+    hi = torch.full(by.shape, W, dtype=torch.long)
+    while bool((lo < hi).any()):
+        mid = (lo + hi) // 2
+        r = rises(mid)
+        hi, lo = torch.where(r, mid, hi), torch.where(r, lo, mid + 1)
+    first = lo  # the first x where the edge rises, W if it never does
+    start = torch.where(a < 0, 0, first).amax(1)  # (B, H)
+    end = torch.where(a < 0, first - 1, W - 1).amin(1)
+    xs = torch.arange(W)[None, None, :]
+    spans = (xs >= start[..., None]) & (xs <= end[..., None])
+    bound = (a.abs() * (W - 1) + b.abs() * (H - 1) + c.abs() < 1e38).all(1).squeeze(-1)  # (B,)
+    return torch.where(bound[:, None, None], spans, fill_edges_plain(edges, H, W))
+
+
+def test_span_fill_equals_the_plain_fill(scene):
+    for name, hulls, hv, H, W in _fill_cases(scene):
+        edges = hull_edges(_t(hulls), _t(hv))
+        assert torch.equal(_span_fill(edges, H, W), fill_hulls_plain(_t(hulls), _t(hv), H, W)), name
+    nan_hull = torch.tensor([[[0.0, 0.0], [10.0, 0.0], [float("nan"), 10.0], [0.0, 10.0]],
+                             [[0.0, 0.0], [5e37, 0.0], [5e37, 3e37], [0.0, 3e37]]])
+    ok = torch.ones((2, 4), dtype=torch.bool)
+    assert torch.equal(_span_fill(hull_edges(nan_hull, ok), 12, 12), fill_hulls_plain(nan_hull, ok, 12, 12))
 
 
 def test_project_and_render_matches_jax(scene):

@@ -132,20 +132,27 @@ def test_slic_batch_runs_one_launch_per_step(cuda):
     assert seg.shape == (2, 224, 224) and agree >= 0.95
 
 
-def test_pixelwise_score_matches_plain(cuda):
+@pytest.mark.parametrize("patches,out", [(28, (224, 224)), (28, (23, 37)), (56, (448, 448))])
+@pytest.mark.parametrize("B", [1, 4])
+def test_pixelwise_score_matches_plain(cuda, B, patches, out):
+    """K2 (the 256 -> 32 layer on the tensor cores) against its plain
+    version: trav within 2e-3, reco within rtol 1e-3 + atol 1e-4 (the MMA
+    sums in another order than the plain fp32 product)."""
     from wild_visual_navigation_tpu_torch.models.registry import get_model
     from wild_visual_navigation_tpu_torch.ops.pixelwise_fused import fused_precompute, score_pixels, score_pixels_plain
 
     mlp = get_model({"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": 384, "hidden_sizes": [256, 32, 1],
                                                              "reconstruction": True}},
                     device=cuda, generator=torch.Generator().manual_seed(0))
-    feat = torch.randn(2, 384, 28, 28, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
-    for out in [(224, 224), (23, 37)]:
-        ops = fused_precompute(mlp, feat, *out)
-        trav, reco = score_pixels(ops, 384)
-        want_t, want_r = score_pixels_plain(ops, 384)
-        torch.testing.assert_close(trav, want_t, atol=2e-3, rtol=0)
-        torch.testing.assert_close(reco, want_r, atol=1e-4, rtol=1e-3)
+    feat = torch.randn(B, 384, patches, patches, device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    ops = fused_precompute(mlp, feat, *out)
+    n = score_pixels.launches
+    trav, reco = score_pixels(ops, 384)
+    torch.cuda.synchronize()
+    assert score_pixels.launches == n + 1 and trav.shape == reco.shape == (B, *out)
+    want_t, want_r = score_pixels_plain(ops, 384)
+    torch.testing.assert_close(trav, want_t, atol=2e-3, rtol=0)
+    torch.testing.assert_close(reco, want_r, atol=1e-4, rtol=1e-3)
 
 
 def test_frame_launches_each_kernel(cuda):
@@ -209,8 +216,70 @@ def test_fill_hulls_degenerate_and_nan(cuda):
         fill_hulls(torch.zeros((1, 65, 2), device=cuda), torch.ones((1, 65), dtype=torch.bool, device=cuda), 8, 8)
 
 
-def test_estimator_flush_launches_fill_hulls_once(cuda):
+def _clouds(B, N, H, W, seed):
+    """B point clouds of N points (numpy): random ones, and in rows 1-9
+    duplicates, collinear points, two valid points, none, non-finite points,
+    a lattice, one horizontal line, a tiny cloud and coordinates near 1e32
+    (whose edge lines overflow, so the fill evaluates every pixel)."""
+    rng = np.random.default_rng(seed)
+    pts = (rng.uniform(size=(B, N, 2)) * [W, H] * 1.3 - 0.15 * np.array([W, H])).astype(np.float32)
+    valid = rng.uniform(size=(B, N)) < 0.7
+    pts[1, N // 2:] = pts[1, : N - N // 2]
+    s = rng.uniform(size=N)
+    pts[2] = np.stack([10 + s * (W - 20), 5 + s * (H - 10)], -1)
+    valid[3, 2:] = False
+    valid[4] = False
+    pts[5, ::3] = np.nan
+    pts[5, 1::7, 0] = np.inf
+    pts[6] = np.round(pts[6] / 20) * 20
+    pts[7, :, 1] = 17.0
+    pts[8] = pts[8] * 0.02 + 30.0
+    pts[9] *= 1e30
+    return pts, valid
+
+
+@pytest.mark.parametrize("hw", [(224, 224), (61, 97)])
+@pytest.mark.parametrize("max_hull,N", [(16, 64), (32, 64), (64, 64), (32, 7), (64, 256)])
+def test_hull_fill_matches_convex_hull_and_plain_fill(cuda, max_hull, N, hw):
+    """K4 from points: one launch gives the hull bitwise equal to
+    convex_hull on the same CUDA tensors and masks identical to the plain
+    fill of that hull."""
+    from wild_visual_navigation_tpu_torch.ops.rasterize import convex_hull, rasterize_points_hull
+    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls, fill_hulls_plain, hull_fill
+
+    H, W = hw
+    pts, valid = (torch.from_numpy(a).to(cuda) for a in _clouds(12, N, H, W, seed=max_hull + N))
+    n = fill_hulls.launches
+    masks, hulls, hull_valid = hull_fill(pts, valid, H, W, max_hull)
+    torch.cuda.synchronize()
+    assert fill_hulls.launches == n + 1 and masks.shape == (12, H, W) and hulls.shape == (12, max_hull, 2)
+    want_h, want_v = convex_hull(pts, valid, max_hull=max_hull)
+    assert torch.equal(hull_valid, want_v)
+    assert torch.equal(hulls.view(torch.int32), want_h.view(torch.int32))  # bitwise, NaN payloads included
+    assert torch.equal(masks, fill_hulls_plain(want_h, want_v, H, W))
+    assert torch.equal(rasterize_points_hull(pts, valid, H, W, max_hull), masks)
+    assert masks[0].any() and not masks[3].any() and not masks[4].any()
+
+
+def test_hull_fill_refuses_what_the_kernel_does_not_take(cuda):
+    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import hull_fill
+
+    with pytest.raises(ValueError, match="1 to 256 points"):
+        hull_fill(torch.zeros((1, 257, 2), device=cuda), torch.ones((1, 257), dtype=torch.bool, device=cuda), 8, 8)
+    with pytest.raises(ValueError, match="max_hull of 1 to 64"):
+        hull_fill(torch.zeros((1, 8, 2), device=cuda), torch.ones((1, 8), dtype=torch.bool, device=cuda), 8, 8, 65)
+
+
+def test_estimator_flush_launches_fill_hulls_once(cuda, monkeypatch):
+    """One K4 launch per flush runs the hull and the fill: the torch gift
+    wrap is never called on the card."""
+    from wild_visual_navigation_tpu_torch.ops import rasterize
     from wild_visual_navigation_tpu_torch.traversability.estimator import TraversabilityEstimator
+
+    def no_torch_hull(*args, **kwargs):
+        raise AssertionError("convex_hull ran on the flush path")
+
+    monkeypatch.setattr(rasterize, "convex_hull", no_torch_hull)
     from wild_visual_navigation_tpu_torch.traversability.nodes import MissionNode, SupervisionNode
 
     est = TraversabilityEstimator(

@@ -102,6 +102,27 @@ def test_kernel_wrappers_refuse_other_devices():
         fill_hulls(torch.empty((2, 8, 2), device="meta"), torch.empty((2, 8), dtype=torch.bool, device="meta"), 4, 4)
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_hull_fill_takes_only_cuda_tensors(device):
+    """K4 from points has no plain route of its own: rasterize_points_hull
+    sends CPU tensors to convex_hull and the plain fill, and hull_fill
+    raises for anything but a CUDA tensor."""
+    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import hull_fill
+
+    with pytest.raises(ValueError, match="unsupported device"):
+        hull_fill(torch.zeros((2, 8, 2), device=device), torch.ones((2, 8), dtype=torch.bool, device=device), 4, 4)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_hull_masks_takes_only_cuda_tensors(device):
+    """The flush's K4 route (masks only) raises for anything but a CUDA
+    tensor, as hull_fill does."""
+    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import hull_masks
+
+    with pytest.raises(ValueError, match="hull_masks: unsupported device"):
+        hull_masks(torch.zeros((2, 8, 2), device=device), torch.ones((2, 8), dtype=torch.bool, device=device), 4, 4)
+
+
 def test_build_is_keyed_on_the_sources():
     assert _cuda.BUILD_DIR.parent == PKG / "csrc"
     assert {p.name for p in _cuda.CSRC.glob("*.cu")} == {"flash_attention.cu", "pixelwise_score.cu", "slic_step.cu",

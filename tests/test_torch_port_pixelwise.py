@@ -89,6 +89,40 @@ def test_row_tables_and_operands(head):
     assert ops.w1t.shape == (32, 64) and ops.gt.shape == (33, 32) and ops.starts.shape == (23,)
 
 
+@pytest.mark.parametrize("out,inp", [(224, 28), (23, 28), (37, 28), (448, 56), (224, 2)])
+def test_row_runs_split_rows_by_patch_row_pair(out, inp):
+    """K2's blocks take runs of output rows sharing one pair of patch rows
+    (equal starts of the JAX package's _row_tables), at most MAX_RUN rows
+    each, covering every row once."""
+    starts, _ = jfused._row_tables(out, inp)
+    runs = tfused._row_runs(starts)
+    assert runs.dtype == np.int32 and runs[0] == 0 and runs[-1] == out
+    lengths = np.diff(runs)
+    assert (lengths >= 1).all() and (lengths <= tfused.MAX_RUN).all()
+    for r0, r1 in zip(runs[:-1], runs[1:]):
+        assert (starts[r0:r1] == starts[r0]).all()
+    for r in range(1, len(runs) - 1):  # a run ends where starts change, or where it is full
+        assert starts[runs[r]] != starts[runs[r] - 1] or lengths[r - 1] == tfused.MAX_RUN
+    ops = tfused.fused_precompute(get_model(CFG), torch.zeros(1, D, inp, inp), out, out)
+    np.testing.assert_array_equal(ops.runs.numpy(), runs)
+
+
+def test_row_operands_are_built_once_per_shape():
+    """starts, coef and runs depend on the row counts alone: a second frame
+    of the same shape reuses the first's tensors, which hold _row_tables'
+    values."""
+    mlp = get_model(CFG)
+    a = tfused.fused_precompute(mlp, torch.zeros(1, D, 8, 8), 56, 40)
+    b = tfused.fused_precompute(mlp, torch.ones(2, D, 8, 8), 56, 23)
+    assert a.starts is b.starts and a.coef is b.coef and a.runs is b.runs
+    starts, coef = jfused._row_tables(56, 8)
+    np.testing.assert_array_equal(a.starts.numpy(), starts)
+    np.testing.assert_array_equal(a.coef.numpy(), coef)
+    np.testing.assert_array_equal(a.runs.numpy(), tfused._row_runs(starts))
+    c = tfused.fused_precompute(mlp, torch.zeros(1, D, 8, 8), 57, 40)
+    assert c.starts is not a.starts and c.starts.shape == (57,)
+
+
 def test_structural_gates():
     small = get_model(CFG)
     assert supports_optimized(small) and tfused.supports_fused(small, (1, D, 8, 8), 56, 56)

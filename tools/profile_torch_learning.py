@@ -10,9 +10,9 @@ the product's settings, as chip_smoke.py's learning phase does (the same
   * the host-clock latency of each kind of replay event (frame, mission
     intake, supervision intake with its flush, train call), each ending in
     a synchronize, over a second replay;
-  * the stages of one supervision flush (projection, convex hull, K4 with
-    its edge construction, fusion + segment means, write-back), each on
-    the host clock ending in a synchronize, medians over the replay's
+  * the stages of one supervision flush (projection, K4 running the hull
+    and the fill in one launch, fusion + segment means, write-back), each
+    on the host clock ending in a synchronize, medians over the replay's
     recorded footprint updates;
   * a torch.profiler trace of 10 recorded flushes and 10 train steps:
     device kernel time by name, and the device's busy share of the wall
@@ -63,8 +63,7 @@ def profile_learning(dev, size: int, S: int) -> dict:
     from wild_visual_navigation_tpu_torch.feature_extractor.dino import DinoInterface
     from wild_visual_navigation_tpu_torch.models.registry import get_model
     from wild_visual_navigation_tpu_torch.ops.projection import Camera, project_points
-    from wild_visual_navigation_tpu_torch.ops.rasterize import convex_hull
-    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls
+    from wild_visual_navigation_tpu_torch.ops.rasterize import rasterize_points_hull
     from wild_visual_navigation_tpu_torch.ops.segment_ops import segment_masked_mean
     from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_frame_fn
     from wild_visual_navigation_tpu_torch.traversability.estimator import TraversabilityEstimator
@@ -130,7 +129,7 @@ def profile_learning(dev, size: int, S: int) -> dict:
 
     # 2. the stages of one flush, over the recorded footprint updates
     buf = est.buffer
-    stages: dict[str, list] = {k: [] for k in ("gather + project", "convex hull", "K4 fill (edges + kernel)",
+    stages: dict[str, list] = {k: [] for k in ("gather + project", "K4 hull + fill (one launch)",
                                                "fuse + segment means", "write-back")}
 
     def stage(key, fn):
@@ -146,8 +145,7 @@ def profile_learning(dev, size: int, S: int) -> dict:
         pts = torch.as_tensor(fp, device=dev)[None].expand(len(idx), -1, 3)
         p2d, _, vz = stage("gather + project", lambda: project_points(Camera(buf.K[sel], size, size),
                                                                       buf.pose_cam_in_world[sel], pts))
-        hulls, hv = stage("convex hull", lambda: convex_hull(p2d, vz, max_hull=32))
-        inside = stage("K4 fill (edges + kernel)", lambda: fill_hulls(hulls, hv, size, size))
+        inside = stage("K4 hull + fill (one launch)", lambda: rasterize_points_hull(p2d, vz, size, size, max_hull=32))
 
         def fuse():
             fused = torch.minimum(buf.supervision_mask[sel], torch.where(inside, trav, torch.inf))

@@ -9,9 +9,12 @@ ops/_cuda.py:
   K1 flash_attention  ops/flash_attention.py::flash_attention
   K2 pixelwise_score  ops/pixelwise_fused.py::score_pixels
   K3 slic_step        ops/slic_fused.py::slic_step
-  K4 fill_hulls       ops/rasterize_fill.py::fill_hulls
+  K4 fill_hulls       ops/rasterize_fill.py::fill_hulls (the fill alone),
+                      ::hull_masks and ::hull_fill (the hull and the fill in
+                      one launch; hull_fill also writes the hull)
 
-Each wrapper counts its launches in a `launches` attribute.
+Each wrapper counts its launches in a `launches` attribute (K4's entry
+points in `fill_hulls.launches`).
 """
 
 from __future__ import annotations

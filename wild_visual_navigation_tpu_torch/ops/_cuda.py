@@ -41,12 +41,17 @@ SIGNATURES = {
     # q, k, v, o, host int64[12] of (B, H, S) strides, B, H, S, D, dtype, scale, stream
     "wvn_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "wvn_flash_attention_smem_bytes": [],
-    "wvn_pixelwise_score": [_P] * 11 + [_I, _I, _I, _I, _I, _F, _P],
+    # hw, zsts, starts, runs, coef, w1t, b1, gt, v, consts, trav, reco, B, Hp, H, W, K1, R, D, stream
+    "wvn_pixelwise_score": [_P] * 12 + [_I] * 6 + [_F, _P],
     "wvn_pixelwise_hidden_width": [],
+    "wvn_pixelwise_score_smem_bytes": [_I],
     # feats, centers, ids, new_centers, partials, mask, rowsums, rowmask, tickets, B, H, W, K, ws, win2, stream
     "wvn_slic_step": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P],
     "wvn_slic_step_smem_bytes": [_I, _I, _I],
-    "wvn_fill_hulls": [_P, _P, _I, _I, _I, _I, _P],
+    # hulls, hull_valid, out, B, E, H, W, stream
+    "wvn_fill_hulls": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # points, valid, hulls, hull_valid, out, B, N, E, H, W, stream
+    "wvn_hull_fill": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -18,6 +18,7 @@ where t0 / t1 are the W-contracted Gram maps of |upsample(feat)|²
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -53,6 +54,30 @@ def _row_tables(out_size: int, in_size: int):
     return starts, coef
 
 
+MAX_RUN = 8  # output rows per K2 block: one per warp
+
+
+def _row_runs(starts: np.ndarray) -> np.ndarray:
+    """Boundaries (R + 1,) int32 of the runs of output rows that share one
+    pair of patch rows (equal starts[y]), each cut to at most MAX_RUN rows:
+    K2 gives each run (and a tile of columns) one block, which loads the
+    two hw rows once for all of the run's rows."""
+    bounds = [0]
+    for y in range(1, len(starts)):
+        if starts[y] != starts[bounds[-1]] or y - bounds[-1] == MAX_RUN:
+            bounds.append(y)
+    bounds.append(len(starts))
+    return np.asarray(bounds, np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def _row_operands(out_size: int, in_size: int, device: torch.device):
+    """(starts, coef, runs) on `device`: they depend on the row counts
+    alone, so each shape builds and copies them once."""
+    starts, coef = _row_tables(out_size, in_size)
+    return tuple(torch.as_tensor(a, device=device) for a in (starts, coef, _row_runs(starts)))
+
+
 def dense_layers(mlp) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """(kernel (in, out), bias) in fp32 for each Linear of a SimpleMLP."""
     return [(lin.weight.detach().float().T, lin.bias.detach().float()) for lin in mlp.layers]
@@ -75,6 +100,7 @@ class FusedOperands(NamedTuple):
     gt: torch.Tensor  # (1 + K, K) fp32: [w_trav ; Wr Wrᵀ]
     v: torch.Tensor  # (K,) fp32: Wr br
     consts: torch.Tensor  # (2,) fp32: [b_trav, br·br]
+    runs: torch.Tensor  # (R + 1,) int32: row boundaries of the runs of equal starts (_row_runs)
 
 
 @torch.no_grad()
@@ -112,11 +138,11 @@ def fused_precompute(mlp, feat: torch.Tensor, out_h: int, out_w: int) -> FusedOp
     t1 = torch.nn.functional.pad(t1, (0, 0, 0, 1))  # Hp - 1 -> Hp rows
     zsts = torch.cat([zw, sw[..., None], t0[..., None], t1[..., None]], dim=-1).contiguous()
 
-    starts, coef = _row_tables(out_h, Hp)
+    starts, coef, runs = _row_operands(out_h, Hp, dev)
     M = Wr @ Wr.T
     return FusedOperands(
-        starts=t(starts),
-        coef=t(coef),
+        starts=starts,
+        coef=coef,
         hw=hw,
         zsts=zsts,
         w1t=W1.T.to(torch.bfloat16).contiguous(),
@@ -124,6 +150,7 @@ def fused_precompute(mlp, feat: torch.Tensor, out_h: int, out_w: int) -> FusedOp
         gt=torch.cat([Wl[:, :1], M], dim=1).T.contiguous(),
         v=(Wr @ br).contiguous(),
         consts=torch.stack([bl[0], br @ br]).contiguous(),
+        runs=runs,
     )
 
 
@@ -163,8 +190,10 @@ def score_pixels(ops: FusedOperands, D: int):
         raise ValueError(f"score_pixels: the kernel takes a [D -> K1 -> {K} -> 1 + D] head, got w1t {tuple(ops.w1t.shape)}")
     if K1 % 8 or K1 > 512 or Hp < 2:
         raise ValueError(f"score_pixels: the kernel takes K1 a multiple of 8 up to 512 and Hp >= 2, got {K1}, {Hp}")
-    if ops.hw.dtype != torch.bfloat16 or ops.w1t.dtype != torch.bfloat16 or ops.starts.dtype != torch.int32:
-        raise ValueError("score_pixels: hw and w1t must be bfloat16, starts int32")
+    if ops.hw.dtype != torch.bfloat16 or ops.w1t.dtype != torch.bfloat16:
+        raise ValueError("score_pixels: hw and w1t must be bfloat16")
+    if ops.starts.dtype != torch.int32 or ops.runs.dtype != torch.int32 or ops.runs.ndim != 1:
+        raise ValueError("score_pixels: starts and runs must be int32 vectors")
     if any(x.dtype != torch.float32 for x in (ops.zsts, ops.coef, ops.b1, ops.gt, ops.v, ops.consts)):
         raise ValueError("score_pixels: zsts, coef, b1, gt, v and consts must be float32")
     _cuda.require_cuda("score_pixels", *ops)
@@ -172,9 +201,9 @@ def score_pixels(ops: FusedOperands, D: int):
     reco = torch.empty_like(trav)
     with torch.cuda.device(ops.hw.device):
         err = lib.wvn_pixelwise_score(
-            *(x.data_ptr() for x in (ops.hw, ops.zsts, ops.starts, ops.coef, ops.w1t, ops.b1, ops.gt, ops.v,
-                                     ops.consts, trav, reco)),
-            B, Hp, H, W, K1, float(D), _cuda.stream_of(ops.hw),
+            *(x.data_ptr() for x in (ops.hw, ops.zsts, ops.starts, ops.runs, ops.coef, ops.w1t, ops.b1, ops.gt,
+                                     ops.v, ops.consts, trav, reco)),
+            B, Hp, H, W, K1, ops.runs.shape[0] - 1, float(D), _cuda.stream_of(ops.hw),
         )
     _cuda.check(err, "score_pixels")
     score_pixels.launches += 1

@@ -6,10 +6,11 @@ Port of wild_visual_navigation_tpu/ops/rasterize.py:
      masked projected footprint points, O(max_hull · N²) cross products,
      no data-dependent shapes; batched over leading dimensions.
   2. The hull is filled by a half-plane test: a pixel is inside when it
-     lies on the inner side of every hull edge. `rasterize_points_hull`
-     fills through kernel K4 (ops/rasterize_fill.py), whose plain version
-     serves CPU tensors; `fill_convex_hull`, the reference's scan over
-     edges, stays as a second form to test against.
+     lies on the inner side of every hull edge. For CUDA tensors
+     `rasterize_points_hull` runs both steps in one launch of kernel K4
+     (ops/rasterize_fill.py::hull_masks), bitwise equal to `convex_hull`
+     and the plain fill, which serve CPU tensors; `fill_convex_hull`, the
+     reference's scan over edges, stays as a second form to test against.
 
 Masks are boolean; callers fuse them with a +inf "unset" sentinel
 (traversability/estimator.py).
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from .projection import Camera, project_points
-from .rasterize_fill import fill_hulls
+from .rasterize_fill import fill_hulls_plain, hull_masks
 
 _EPS = 1e-6
 _BIG = 1e30
@@ -91,9 +92,13 @@ def fill_convex_hull(hull: torch.Tensor, hull_valid: torch.Tensor, height: int, 
 def rasterize_points_hull(points2d: torch.Tensor, valid: torch.Tensor, height: int, width: int,
                           max_hull: int = 32) -> torch.Tensor:
     """Masks of the convex hulls of the valid projected points:
-    (B, N, 2), (B, N) -> (B, height, width) bool, filled by K4."""
-    hulls, hull_valid = convex_hull(points2d, valid, max_hull=max_hull)
-    return fill_hulls(hulls, hull_valid, height, width)
+    (B, N, 2), (B, N) -> (B, height, width) bool. CUDA tensors take K4 from
+    the points (one launch runs the gift wrap and the fill); CPU tensors
+    take convex_hull and the plain fill."""
+    if points2d.device.type == "cpu":
+        hulls, hull_valid = convex_hull(points2d, valid, max_hull=max_hull)
+        return fill_hulls_plain(hulls, hull_valid, height, width)
+    return hull_masks(points2d, valid, height, width, max_hull)
 
 
 def project_and_render(camera: Camera, pose_camera_in_world: torch.Tensor, points_world: torch.Tensor,
