@@ -16,7 +16,16 @@ PyTorch version at the main path's shapes, and drives two paths:
     buffer, each robot state through the supervision generator into a
     footprint reprojection (K4: the hull and the fill in one launch) and a
     train step; then the learnt head hot-swapped into the frame function,
-    and the same replay on the CPU for comparison.
+    and the same replay on the CPU for comparison;
+  * the runtime, through the entry points a robot stack calls: the same
+    mission through `run_replay` and WVNRuntime's callbacks on the card
+    (K1 12, K2 1, K3 11 launches per accepted frame, K4 1 per flush, the
+    same counts as the learning phase) and on the CPU, image_batch_callback
+    at B=4 against single callbacks, the learning thread at 10 Hz while
+    frames arrive, and the two-process topology (a LearningNode spawned on
+    the same card, fed by a FeatureExtractorNode over a Unix socket, its
+    hot-swap file reloaded); then the callbacks' latencies beside the bare
+    frame's.
 
 It checks each path's outputs and that each went through its kernels, and
 times the kernels, the frame, a supervision flush and a train step. It
@@ -30,7 +39,8 @@ bitwise equal to `convex_hull`) and the fill alone, and a torch.profiler
 breakdown of 10 frames. Every phase raises on failure.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launches on the main path, errors, times and
+the kernels with their launches in the runtime's replay of the mission
+(counts set to 0 just before it, read just after), errors, times and
 bounds (K4's of the fill alone, as the TPU kernel it replaces; its launch
 from points under from_points_* keys). Without a CUDA device, or outside
 the repository, it exits non-zero and prints no result.
@@ -342,6 +352,412 @@ def replay_learning(dev, frame, cg_state, seq: dict, size: int, num_segments: in
                  "valid_nodes": est.get_num_valid_nodes()}
 
 
+def runtime_params():
+    """The product's node settings (cfg/node_params.py) with the callback
+    rates raised so a replay at virtual time is not gated, as the demo
+    raises them (demo_online.py)."""
+    from wild_visual_navigation_tpu_torch.cfg.node_params import FeatureExtractorNodeParams, LearningNodeParams
+
+    return (FeatureExtractorNodeParams(image_callback_rate=1e9),
+            LearningNodeParams(supervision_callback_rate=1e9))
+
+
+def make_runtime(dev):
+    """WVNRuntime at the product's settings: DINO ViT-S/8 at 224 (seed 0, the
+    frame phase's backbone), SLIC 100, per-pixel prediction, buffer 256,
+    fan-out 32, batch 8."""
+    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
+
+    fe, ln = runtime_params()
+    return WVNRuntime(fe_params=fe, ln_params=ln, seed=0, buffer_capacity=256, reprojection_fanout=32, device=dev)
+
+
+def replay_runtime(rt, seq):
+    """run_replay through the runtime's callbacks, with the losses each
+    learning step read back (every `logging` tick) and the launches."""
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.runtime import run_replay
+
+    losses, step = [], rt.learning_step
+
+    def recorded():
+        before = rt.estimator.step
+        st = step()
+        if rt.estimator.step > before and st.step % 5 == 0 and st.loss_total > 0:
+            losses.append(st.loss_total)
+        return st
+
+    rt.learning_step = recorded
+    port.reset_launch_counts()
+    rep = run_replay(rt, seq)
+    if rt.estimator.buffer.features.is_cuda:
+        import torch
+
+        torch.cuda.synchronize()
+    counts = port.launch_counts()
+    rt.learning_step = step
+    return rep, losses, counts
+
+
+def learning_node_process(sock_path: str, folder: str, seq_path: str, device: str, queue) -> None:
+    """The learning process of the two-process topology (started with
+    spawn): a LearningNode on the card fed ImageFeatures over a Unix
+    socket, and the recorded mission's robot states in stamp order; it
+    writes the hot-swap file at the checkpoint rate and at shutdown."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import torch
+
+        import wild_visual_navigation_tpu_torch as port
+        from wild_visual_navigation_tpu_torch.runtime.msgs import ImageFeatures
+        from wild_visual_navigation_tpu_torch.runtime.nodes import LearningNode
+        from wild_visual_navigation_tpu_torch.runtime.transport import SocketSubscriber
+
+        fe, ln = runtime_params()
+        node = LearningNode(fe_params=fe, ln_params=ln, hot_swap_folder=folder, device=device)
+        writes, write = [], node._write_hot_swap
+
+        def counted():
+            writes.append(node.runtime.estimator.step)
+            return write()
+
+        node._write_hot_swap = counted
+        sub = SocketSubscriber(sock_path, maxlen=100_000)
+        queue.put({"connected": True})
+        seq = np.load(seq_path)
+        n_states, si, frames, flushes = len(seq["state_stamps"]), 0, 0, 0
+        port.reset_launch_counts()
+
+        def states_before(stamp):
+            nonlocal si, flushes
+            while si < n_states and seq["state_stamps"][si] < stamp:
+                flushes += node.robot_state_callback(float(seq["state_stamps"][si]), seq["state_pose"][si],
+                                                     seq["state_twist"][si], seq["state_desired"][si])
+                node.learning_step()
+                si += 1
+
+        while True:
+            payload = sub.poll()
+            if payload is None:
+                time.sleep(0.001)
+                continue
+            if payload == b"END":
+                break
+            states_before(ImageFeatures.unpack(payload).stamp)
+            node.imagefeat_callback(payload)
+            frames += 1
+        states_before(float("inf"))
+        node.shutdown(str(Path(folder) / "mission"))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        est = node.runtime.estimator
+        queue.put({"frames": frames, "flushes": flushes, "steps": est.step, "valid_nodes": est.get_num_valid_nodes(),
+                   "mission_nodes": len(est.get_mission_nodes()), "hot_swap_writes": writes,
+                   "launches": port.launch_counts(), "errors": len(node.runtime.events.snapshot()["errors"])})
+        sub.close()
+    except Exception as exc:  # reported to the parent, which raises
+        import traceback
+
+        queue.put({"error": "".join(traceback.format_exception(exc))})
+
+
+def from_child(queue, proc, timeout: float) -> dict:
+    """The child's next message; raises if it died or the time ran out."""
+    import queue as queue_mod
+
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        try:
+            msg = queue.get(timeout=1.0)
+        except queue_mod.Empty:
+            require(proc.is_alive(), f"the learning process exited with code {proc.exitcode}")
+            continue
+        require("error" not in msg, f"learning process: {msg.get('error')}")
+        return msg
+    raise RuntimeError(f"check failed: no message from the learning process in {timeout:.0f} s")
+
+
+def two_process(dev, seq: dict, seq_path: Path) -> dict:
+    """A LearningNode in a spawned process on the same card, fed by a
+    FeatureExtractorNode in this one over a Unix socket, frames at 10 Hz
+    (the camera rate); the feature node polls the hot-swap file after every
+    frame and once more after the learner's shutdown."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.runtime.nodes import FeatureExtractorNode
+    from wild_visual_navigation_tpu_torch.runtime.transport import SocketPublisher
+
+    sock_dir = tempfile.mkdtemp(prefix="wvn")  # a short path: Unix socket paths hold at most 107 bytes
+    sock = str(Path(sock_dir) / "features.sock")
+    folder = str(Path(sock_dir) / "hot_swap")
+    pub = SocketPublisher(sock)
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=learning_node_process, args=(sock, folder, str(seq_path), torch_device(dev), queue),
+                       daemon=True)
+    t0 = time.perf_counter()
+    proc.start()
+    try:
+        from_child(queue, proc, 300)
+        deadline = time.perf_counter() + 30
+        while not pub._conns and time.perf_counter() < deadline:  # the publisher accepts on its own thread
+            time.sleep(0.01)
+        require(bool(pub._conns), "the learning process's subscriber connected")
+        started = time.perf_counter() - t0
+        fe, _ = runtime_params()
+        node = FeatureExtractorNode(params=fe, hot_swap_folder=folder, publish_features=pub.publish, seed=0,
+                                    device=dev)
+        reloads, port_counts = [], None
+        port.reset_launch_counts()
+        for i in range(len(seq["frame_stamps"])):
+            tick = time.perf_counter()
+            trav, conf = node.image_callback(seq["frame_images"][i], float(seq["frame_stamps"][i]), "front",
+                                             seq["frame_K"][i], 64, 64, seq["frame_pose"][i],
+                                             seq["frame_cam_in_base"][i])
+            require(np.isfinite(trav).all() and np.isfinite(conf).all(), "feature node maps finite")
+            if node.maybe_reload_weights():
+                reloads.append(node._loaded_step)
+            time.sleep(max(0.0, 0.1 - (time.perf_counter() - tick)))
+        port_counts = port.launch_counts()
+        pub.publish(b"END")
+        out = from_child(queue, proc, 600)
+        proc.join(timeout=60)
+        final = node.maybe_reload_weights()
+        if final:
+            reloads.append(node._loaded_step)
+        return {**out, "reloads": reloads, "final_reload": final, "startup_s": started,
+                "feature_launches": port_counts, "wall_s": time.perf_counter() - t0}
+    finally:
+        pub.close()
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=30)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+
+
+def profile_calls(fn, inputs) -> tuple[float, float, float, float]:
+    """torch.profiler over fn(*x) for each input: (wall ms per call, device
+    kernel ms per call, kernel launches per call, busy share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in inputs:
+            fn(*x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA") and r.device_time_total > 0]
+    busy = sum(r.device_time_total for r in rows) / 1e3
+    n = len(inputs)
+    return wall / n, busy / n, sum(r.count for r in rows) / n, busy / wall
+
+
+def torch_device(dev) -> str:
+    return str(dev).split(":")[0]
+
+
+def runtime_phase(dev, card: str, seq: dict, seq_path: Path, learn: dict) -> dict:
+    """The port's WVNRuntime at the product's settings, through the entry
+    points a robot stack calls: the recorded mission replayed (launches per
+    accepted frame and per flush), the same replay on the CPU, the batched
+    callback against single ones, the learning thread while frames arrive,
+    the two-process topology, and the callbacks' timings. Returns the
+    replay's launches by kernel."""
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.runtime import load_sequence
+
+    sequence = load_sequence(str(seq_path))
+    n_frames = len(sequence.frames)
+
+    # 1. the mission through the runtime on the card
+    rt = make_runtime(dev)
+    t0 = time.perf_counter()
+    rep, losses, counts = replay_runtime(rt, sequence)
+    replay_s = time.perf_counter() - t0
+    per = {k: counts[k] / max(rep.frames_processed, 1) for k in ("flash_attention", "pixelwise_score", "slic_step")}
+    k4 = counts["fill_hulls"] / max(rep.supervision_updates, 1)
+    print(f"[runtime] run_replay of {n_frames} frames + {len(sequence.states)} robot states through WVNRuntime in "
+          f"{replay_s:.2f} s: {rep.frames_processed} frames processed, {rep.frames_gated} gated, "
+          f"{rep.supervision_updates} supervision updates, {rep.train_steps} train steps, {rep.valid_nodes} valid "
+          f"nodes; losses read back, first {[round(x, 5) for x in losses[:3]]}, last {[round(x, 5) for x in losses[-3:]]}"
+          f"; {rt.hot_swaps} hot swaps", flush=True)
+    print(f"[runtime] launches {counts}: per accepted frame K1 {per['flash_attention']:.2f}, K2 "
+          f"{per['pixelwise_score']:.2f}, K3 {per['slic_step']:.2f}; per flush K4 {k4:.2f}")
+    require(rep.frames_processed == n_frames and rep.frames_gated == 0, "every frame accepted")
+    require(per == {"flash_attention": 12, "pixelwise_score": 1, "slic_step": 11} and k4 == 1,
+            "K1 12, K2 1, K3 11 per accepted frame and K4 1 per flush")
+    require(rep.supervision_updates == learn["flushes"] and rep.valid_nodes == learn["valid_nodes"]
+            and rep.train_steps == learn["steps"],
+            f"the runtime's replay counts equal replay_learning's ({learn['flushes']} flushes, "
+            f"{learn['valid_nodes']} valid nodes, {learn['steps']} steps)")
+    require(len(losses) >= 3 and all(np.isfinite(losses)) and losses[-1] < losses[0], "finite falling losses")
+    trav, conf = rep.last_result.to_numpy()
+    require(trav.shape == (rt._H, rt._W) and np.isfinite(trav).all() and np.isfinite(conf).all()
+            and trav.min() >= 0 and trav.max() <= 1, "the last frame's maps finite, in [0, 1]")
+
+    # 2. the same replay on the CPU, through the plain versions
+    t0 = time.perf_counter()
+    rt_cpu = make_runtime("cpu")
+    rep_cpu, losses_cpu, counts_cpu = replay_runtime(rt_cpu, sequence)
+    cpu_s = time.perf_counter() - t0
+    trav_c, conf_c = rep_cpu.last_result.to_numpy()
+    occupied = rt.estimator.buffer.valid.cpu()
+    m_gpu = rt.estimator.buffer.supervision_mask.cpu()[occupied]
+    m_cpu = rt_cpu.estimator.buffer.supervision_mask[occupied]
+    mask_differ = int((m_gpu != m_cpu).sum())
+    loss_diff = max((abs(a - b) / abs(b) for a, b in zip(losses, losses_cpu)), default=float("nan"))
+    same = all(getattr(rep, f) == getattr(rep_cpu, f) for f in
+               ("frames_processed", "frames_gated", "supervision_updates", "train_steps", "valid_nodes"))
+    print(f"[runtime] CPU replay (plain versions, {cpu_s:.1f} s): counts equal to the card's: {same} "
+          f"({rep_cpu.frames_processed} frames, {rep_cpu.supervision_updates} updates, {rep_cpu.train_steps} steps, "
+          f"{rep_cpu.valid_nodes} valid nodes); no kernel launched: {sum(counts_cpu.values()) == 0}; supervision masks "
+          f"differ in {mask_differ} of {m_gpu.numel()} pixels; the last frame's trav mean abs diff "
+          f"{np.abs(trav - trav_c).mean():.3e} (tol 1e-2), max {np.abs(trav - trav_c).max():.3e} (tol 1e-1), conf mean "
+          f"abs diff {np.abs(conf - conf_c).mean():.3e} (tol 5e-2); max relative loss difference {loss_diff:.3e} "
+          f"(tol 5e-2)", flush=True)
+    require(same and sum(counts_cpu.values()) == 0, "the CPU replay's counts equal the card's")
+    require(mask_differ <= 1e-4 * m_gpu.numel(), "supervision masks agree with the CPU replay")
+    # the bf16 backbones round differently on the two devices, and the heads then train 41 steps on features
+    # that differ by that much, so the maps are held to a bf16-scale tolerance
+    require(np.abs(trav - trav_c).mean() <= 1e-2 and np.abs(trav - trav_c).max() <= 1e-1
+            and np.abs(conf - conf_c).mean() <= 5e-2 and loss_diff <= 5e-2, "maps and losses agree with the CPU replay")
+    del rt_cpu
+
+    # 3. image_batch_callback at B=4 against four image_callbacks
+    rt_b, rt_s = make_runtime(dev), make_runtime(dev)
+    idx = np.arange(4)
+    args = (seq["frame_images"][idx], seq["frame_stamps"][idx], ["front"] * 4, seq["frame_K"][idx], 64, 64,
+            seq["frame_pose"][idx], seq["frame_cam_in_base"][idx])
+    port.reset_launch_counts()
+    batch = rt_b.image_batch_callback(*args)
+    torch.cuda.synchronize()
+    batch_counts = port.launch_counts()
+    singles = [rt_s.image_callback(seq["frame_images"][i], float(seq["frame_stamps"][i]), "front", seq["frame_K"][i],
+                                   64, 64, seq["frame_pose"][i], seq["frame_cam_in_base"][i]) for i in idx]
+    t_diff = max(float((b.traversability - s.traversability).abs().max()) for b, s in zip(batch, singles))
+    c_diff = max(float((b.confidence - s.confidence).abs().max()) for b, s in zip(batch, singles))
+    slots_b = [(n.timestamp, n.buffer_slot) for n in rt_b.estimator.get_mission_nodes()]
+    slots_s = [(n.timestamp, n.buffer_slot) for n in rt_s.estimator.get_mission_nodes()]
+    f_diff = float((rt_b.estimator.buffer.features - rt_s.estimator.buffer.features).abs().max())
+    seg_same = bool(torch.equal(rt_b.estimator.buffer.seg, rt_s.estimator.buffer.seg))
+    print(f"[runtime] image_batch_callback B=4 against 4 image_callbacks: trav max abs diff {t_diff:.3e}, conf "
+          f"{c_diff:.3e} (tol 2e-2); mission nodes and slots equal: {slots_b == slots_s} ({len(slots_b)}); buffer "
+          f"segments equal: {seg_same}, features max abs diff {f_diff:.3e} (tol 0.25); the batch launched "
+          f"{batch_counts}")
+    require(t_diff <= 2e-2 and c_diff <= 2e-2 and slots_b == slots_s and seg_same and f_diff <= 0.25,
+            "the batched callback agrees with single callbacks")
+    require(batch_counts == {"flash_attention": 12, "pixelwise_score": 1, "slic_step": 11, "fill_hulls": 0},
+            "the batch runs the backbone, SLIC and K2 once")
+    del rt_b, rt_s
+
+    # 4. the learning thread at 10 Hz while the mission's frames arrive at 20 Hz
+    rt_t = make_runtime(dev)
+    used, frame_fn = [], rt_t._fused_frame
+
+    def recording(cg, x, head=None):
+        used.append(head)
+        return frame_fn(cg, x, head)
+
+    recording.frames_batch = frame_fn.frames_batch
+    rt_t._fused_frame = recording
+    initial = rt_t.inference_head[0]
+    rt_t.start_learning_thread()
+    t0 = time.perf_counter()
+    try:
+        for _, kind, p in sequence.events():
+            if kind == "frame":
+                res = rt_t.image_callback(p.image, p.stamp, p.camera, p.K, 64, 64, p.pose_base_in_world,
+                                          p.pose_cam_in_base)
+                time.sleep(0.05)
+            else:
+                rt_t.robot_state_callback(p.stamp, p.pose_base_in_world, p.current_twist, p.desired_twist)
+    finally:
+        rt_t.stop_learning_thread()
+    thread_s = time.perf_counter() - t0
+    t_last, c_last = res.to_numpy()
+    errors = rt_t.events.snapshot()["errors"]
+    swapped = used[-1] is not initial and used[-1] is not None
+    print(f"[runtime] learning thread at {rt_t.ln_params.learning_thread_rate:.0f} Hz while {n_frames} frames arrive "
+          f"over {thread_s:.2f} s: {rt_t.estimator.step} train steps, {rt_t.hot_swaps} hot swaps, {len(errors)} "
+          f"errors in the events journal; the last frame scored with a swapped head: {swapped}; its maps finite: "
+          f"{bool(np.isfinite(t_last).all() and np.isfinite(c_last).all())}", flush=True)
+    require(not errors, f"no error in the events journal: {errors[:1]}")
+    require(rt_t.estimator.step > 0 and rt_t.hot_swaps >= 2 and swapped, "the thread trained and swapped heads")
+    require(np.isfinite(t_last).all() and np.isfinite(c_last).all(), "maps finite under the learning thread")
+    del rt_t
+
+    # 5. the two-process topology
+    tp = two_process(dev, seq, seq_path)
+    print(f"[runtime] two processes (LearningNode spawned on the same card, FeatureExtractorNode here, Unix socket): "
+          f"learner up in {tp['startup_s']:.1f} s, whole exchange {tp['wall_s']:.1f} s; the learner ingested "
+          f"{tp['frames']} frames, {tp['flushes']} flushes, {tp['steps']} train steps, {tp['valid_nodes']} valid "
+          f"nodes, hot-swap writes at steps {tp['hot_swap_writes']}, launches {tp['launches']}, {tp['errors']} errors; "
+          f"the feature node reloaded at steps {tp['reloads']} (the last after the learner's shutdown: "
+          f"{tp['final_reload']}) and launched {tp['feature_launches']}", flush=True)
+    require(tp["frames"] == n_frames and tp["errors"] == 0, "the learner ingested every frame")
+    require(tp["flushes"] == rep.supervision_updates and tp["valid_nodes"] == rep.valid_nodes
+            and tp["steps"] == rep.train_steps, "the two-process mission counts equal the runtime's")
+    require(len(tp["reloads"]) >= 1 and tp["final_reload"], "the feature node reloaded the hot-swap file")
+    require(tp["launches"]["fill_hulls"] == tp["flushes"] and tp["feature_launches"]["slic_step"] == 11 * n_frames
+            and tp["feature_launches"]["flash_attention"] == 12 * n_frames,
+            "K4 once per flush in the learner; K1 and K3 in the feature node")
+
+    # 6. timings, each host latency ending in a synchronize
+    rt_time = make_runtime(dev)
+    frames = [(seq["frame_images"][i], float(seq["frame_stamps"][i]), "front", seq["frame_K"][i], 64, 64,
+               seq["frame_pose"][i], seq["frame_cam_in_base"][i]) for i in range(WARMUP + N_TIMED)]
+    head, cg = rt_time.inference_head
+    bare = [(cg, torch.from_numpy(seq["frame_images"][i : i + 1]).to(dev), head) for i in range(WARMUP + N_TIMED)]
+    lat_cb = wall_ms(rt_time.image_callback, frames)
+    lat_frame = wall_ms(rt_time._fused_frame, bare)
+    lat_cb2 = wall_ms(make_runtime(dev).image_callback, frames)
+    lat_frame2 = wall_ms(rt_time._fused_frame, bare)
+    prof_cb = profile_calls(make_runtime(dev).image_callback, frames[:10])
+    prof_frame = profile_calls(rt_time._fused_frame, bare[:10])
+    batches = [(seq["frame_images"][np.arange(i, i + 4) % n_frames], [float(seq["frame_stamps"][i]) + 100.0 + j
+                                                                       for j in range(4)],
+                ["front"] * 4, seq["frame_K"][:4], 64, 64, seq["frame_pose"][np.arange(i, i + 4) % n_frames],
+                seq["frame_cam_in_base"][:4]) for i in range(WARMUP + N_TIMED)]
+    lat_b4 = wall_ms(rt_time.image_batch_callback, batches)
+    # supervision: new robot states past the end of the mission, each one flushing over the fan-out
+    last = len(seq["state_stamps"]) - 1
+    heading = seq["state_pose"][last][:3, 0]
+
+    def state(k):
+        T = seq["state_pose"][last].copy()
+        T[:3, 3] += 0.25 * (k + 1) * heading
+        return (float(seq["state_stamps"][last]) + 0.2 * (k + 1), T, seq["state_twist"][last], seq["state_desired"][last])
+
+    flushed = []
+
+    def robot_state(*a):
+        flushed.append(rt.robot_state_callback(*a))
+
+    lat_rs = wall_ms(robot_state, [state(k) for k in range(WARMUP + N_TIMED)])
+    lat_ls = wall_ms(rt.learning_step, [() for _ in range(WARMUP + N_TIMED)])
+    print(f"[time] image_callback B=1 (64x64 demo frame, upload, frame, buffer insert): {lat_cb:.3f} ms, then "
+          f"{lat_cb2:.3f} ms; the bare frame (the same frames on the card, the mailbox head) {lat_frame:.3f} ms, then "
+          f"{lat_frame2:.3f} ms; on the host clock | {card}")
+    print(f"[time] under the profiler, 10 calls each: image_callback {prof_cb[0]:.3f} ms per call, device kernels "
+          f"{prof_cb[1]:.3f} ms, {prof_cb[2]:.0f} launches per call, busy share {prof_cb[3]:.3f}; bare frame "
+          f"{prof_frame[0]:.3f} ms, device {prof_frame[1]:.3f} ms, {prof_frame[2]:.0f} launches, busy share "
+          f"{prof_frame[3]:.3f} | {card}")
+    print(f"[time] image_batch_callback B=4: {lat_b4:.3f} ms ({lat_b4 / 4:.3f} ms per frame) | {card}")
+    print(f"[time] robot_state_callback with its flush (fan-out 32, 224x224, S=100; {sum(flushed)} of "
+          f"{len(flushed)} calls flushed): {lat_rs:.3f} ms | {card}")
+    print(f"[time] learning_step (train step, batch 8, with the deferred supervision readback and a loss readback "
+          f"every 5th step): {lat_ls:.3f} ms | {card}", flush=True)
+    require(sum(flushed) == len(flushed), "every timed robot state flushed")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -618,6 +1034,12 @@ def main() -> int:
           f"loss difference {loss_diff:.3e}")
     require(rep_cpu["valid_nodes"] == rep["valid_nodes"], "the same valid-node count on the CPU")
     require(mask_differ <= 1e-4 * m_gpu.numel(), "supervision masks agree with the CPU replay")
+
+    # ---- 4c. the runtime: WVNRuntime's callbacks, learning thread and two-process nodes, at the product's settings
+    learn = {"flushes": rep["flushes"], "valid_nodes": rep["valid_nodes"], "steps": est.step}
+    runtime_launches = runtime_phase(dev, card, seq, ROOT / "assets/sequences/demo_mission.npz", learn)
+    require(all(v > 0 for v in runtime_launches.values()), "every kernel launched on the runtime's path")
+    launches = runtime_launches
 
     # ---- 5. timings (device time from CUDA events; frame latency on the host clock)
     sdpa = torch.nn.functional.scaled_dot_product_attention

@@ -311,3 +311,58 @@ def test_estimator_flush_launches_fill_hulls_once(cuda, monkeypatch):
     assert est.get_num_valid_nodes() == 1
     sig = est.buffer.signal[0][est.buffer.signal_valid[0]]
     assert sig.numel() > 0 and torch.allclose(sig, torch.tensor(0.7, device=cuda))
+
+
+def test_facade_extraction_on_the_card_launches_slic_step(cuda):
+    """The FeatureExtractor facade segments a CUDA image with K3 (through
+    slic_batch), never with the plain loop, and runs K1 in every block."""
+    from wild_visual_navigation_tpu_torch.feature_extractor.feature_extractor import FeatureExtractor
+
+    fe = FeatureExtractor(seed=0, segmentation_type="slic", feature_type="dino", input_size=224, device=cuda)
+    img = torch.rand((1, 3, 224, 224), device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    port.reset_launch_counts()
+    ex = fe.extract(img, return_dense_features=True)
+    torch.cuda.synchronize()
+    assert port.launch_counts() == {"flash_attention": 12, "pixelwise_score": 0, "slic_step": 11, "fill_hulls": 0}
+    assert ex.segments.device.type == "cuda" and ex.features.shape == (100, 384)
+    assert int(ex.segments.min()) >= 0 and int(ex.segments.max()) < 100
+    cpu = FeatureExtractor(seed=0, segmentation_type="slic", feature_type="dino", input_size=224, device="cpu")
+    agree = float((cpu.compute_segments(img.cpu())[2] == ex.segments.cpu()).float().mean())
+    assert agree >= 0.95
+
+
+def test_runtime_callbacks_launch_each_kernel(cuda):
+    """WVNRuntime on the card at the product's settings: each accepted
+    frame launches K1 12, K2 1 and K3 11 times, each supervision flush K4
+    once, a learning step none; the mailbox head scores the frame."""
+    from wild_visual_navigation_tpu_torch.cfg.node_params import FeatureExtractorNodeParams, LearningNodeParams
+    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
+
+    fe = FeatureExtractorNodeParams(image_callback_rate=1e9)
+    ln = LearningNodeParams(supervision_callback_rate=1e9, min_samples_for_training=0)
+    rt = WVNRuntime(fe_params=fe, ln_params=ln, seed=0, device=cuda)
+    seq = np.load(__import__("pathlib").Path(__file__).resolve().parent.parent / "assets/sequences/demo_mission.npz")
+    per_frame = {"flash_attention": 12, "pixelwise_score": 1, "slic_step": 11, "fill_hulls": 0}
+    flushes = 0
+    for i in range(6):
+        port.reset_launch_counts()
+        res = rt.image_callback(seq["frame_images"][i], float(seq["frame_stamps"][i]), "front", seq["frame_K"][i],
+                                64, 64, seq["frame_pose"][i], seq["frame_cam_in_base"][i])
+        torch.cuda.synchronize()
+        assert port.launch_counts() == per_frame
+        trav, conf = res.to_numpy()
+        assert trav.shape == (224, 224) and np.isfinite(trav).all() and np.isfinite(conf).all()
+        port.reset_launch_counts()
+        flushed = rt.robot_state_callback(float(seq["state_stamps"][i]), seq["state_pose"][i], seq["state_twist"][i],
+                                          seq["state_desired"][i])
+        torch.cuda.synchronize()
+        assert port.launch_counts()["fill_hulls"] == int(flushed)
+        flushes += int(flushed)
+        port.reset_launch_counts()
+        rt.learning_step()
+        torch.cuda.synchronize()
+        assert sum(port.launch_counts().values()) == 0
+    assert flushes > 0 and rt.estimator.step > 0
+    batch = rt.image_batch_callback(seq["frame_images"][6:10], seq["frame_stamps"][6:10], ["front"] * 4,
+                                    seq["frame_K"][6:10], 64, 64, seq["frame_pose"][6:10], seq["frame_cam_in_base"][6:10])
+    assert len(batch) == 4 and batch[3].traversability.shape == (224, 224)

@@ -14,7 +14,8 @@ ops/_cuda.py:
                       one launch; hull_fill also writes the hull)
 
 Each wrapper counts its launches in a `launches` attribute (K4's entry
-points in `fill_hulls.launches`).
+points in `fill_hulls.launches`), under one lock: the runtime's camera
+and learning threads launch kernels at the same time.
 """
 
 from __future__ import annotations
@@ -36,5 +37,7 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    from .ops import _cuda
+
     for fn in _wrappers().values():
-        fn.launches = 0
+        _cuda.set_launches(fn, 0)

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -55,6 +56,8 @@ SIGNATURES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()  # one build and one binding, whichever thread launches first
+_count_lock = threading.Lock()  # the wrappers' `launches` counters
 build_seconds: float | None = None  # wall time of this process's nvcc call, if it made one
 
 
@@ -130,18 +133,34 @@ def resource_report() -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call). Threads that call
+    it together wait for one build and one binding."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.wvn_error_string.argtypes = [ctypes.c_int]
-        lib.wvn_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.wvn_error_string.argtypes = [ctypes.c_int]
+            lib.wvn_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`; the camera thread and the learning
+    thread launch kernels at the same time."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
+def set_launches(wrapper, n: int) -> None:
+    with _count_lock:
+        wrapper.launches = n
 
 
 def check(err: int, what: str) -> None:

@@ -75,7 +75,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale:
             B, H, S, D, _DTYPES[q.dtype], float(sm_scale), _cuda.stream_of(q),
         )
     _cuda.check(err, "flash_attention")
-    flash_attention.launches += 1
+    _cuda.count_launch(flash_attention)
     return out
 
 

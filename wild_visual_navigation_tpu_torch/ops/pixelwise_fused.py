@@ -206,7 +206,7 @@ def score_pixels(ops: FusedOperands, D: int):
             B, Hp, H, W, K1, ops.runs.shape[0] - 1, float(D), _cuda.stream_of(ops.hw),
         )
     _cuda.check(err, "score_pixels")
-    score_pixels.launches += 1
+    _cuda.count_launch(score_pixels)
     return trav, reco
 
 

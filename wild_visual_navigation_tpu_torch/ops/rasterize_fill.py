@@ -95,7 +95,7 @@ def fill_hulls(hulls: torch.Tensor, hull_valid: torch.Tensor, height: int, width
         err = _cuda.library().wvn_fill_hulls(hulls.data_ptr(), hull_valid.data_ptr(), out.data_ptr(), B, E, height,
                                              width, _cuda.stream_of(hulls))
     _cuda.check(err, "fill_hulls")
-    fill_hulls.launches += 1
+    _cuda.count_launch(fill_hulls)
     return out
 
 
@@ -125,7 +125,7 @@ def _hull_fill(name: str, points: torch.Tensor, valid: torch.Tensor, height: int
                                             hull_valid.data_ptr() if write_hulls else None, masks.data_ptr(), B, N,
                                             max_hull, height, width, _cuda.stream_of(points))
     _cuda.check(err, name)
-    fill_hulls.launches += 1
+    _cuda.count_launch(fill_hulls)
     return masks, hulls, hull_valid
 
 

@@ -172,3 +172,29 @@ def grid_constants(height: int, width: int, cell_size: int, num_segments: int, m
         torch.as_tensor(centers, dtype=torch.float32, device=device),
         torch.as_tensor(cnt > 0, device=device),
     )
+
+
+def segment_pixelwise(height: int, width: int, device=None) -> torch.Tensor:
+    """Pixel-wise segmentation: every pixel its own id, (H, W) int32."""
+    return torch.arange(height * width, dtype=torch.int32, device=device).reshape(height, width)
+
+
+def pixelwise_edges(height: int, width: int, device=None) -> torch.Tensor:
+    """4-neighbour edges of the pixel-wise segmentation, (2, E) int32:
+    the horizontal pairs row by row, then the vertical ones."""
+    seg = segment_pixelwise(height, width, device)
+    hor = torch.stack([seg[:, :-1].reshape(-1), seg[:, 1:].reshape(-1)])
+    ver = torch.stack([seg[:-1, :].reshape(-1), seg[1:, :].reshape(-1)])
+    return torch.cat([hor, ver], dim=1)
+
+
+def segment_random(generator: torch.Generator, height: int, width: int, n_random_pixels: int = 100,
+                   device=None) -> torch.Tensor:
+    """Random-pixel segmentation: `n` distinct pixels drawn from
+    `generator` get ids 0..n-1, the rest -1 (unassigned). The JAX package
+    draws with `jax.random.permutation`, which torch cannot reproduce:
+    the structure is the same, the pixels are not."""
+    perm = torch.randperm(height * width, generator=generator)[:n_random_pixels]
+    seg = torch.full((height * width,), -1, dtype=torch.int32)
+    seg[perm] = torch.arange(n_random_pixels, dtype=torch.int32)
+    return seg.reshape(height, width).to(device)

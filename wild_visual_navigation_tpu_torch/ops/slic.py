@@ -6,8 +6,9 @@ centres (a windowed candidate search changes the assignments on smooth
 images), first-index argmin, and an orphan fallback to the spatially
 nearest centre. Output ids are stable grid positions.
 
-`slic` is the plain whole-image form. `slic_batch` runs the Lloyd loop
-of ops/slic_fused.py, whose step is kernel K3 on CUDA tensors.
+`slic` is the plain whole-image form for CPU tensors; a CUDA image goes
+to `slic_batch`, which runs the Lloyd loop of ops/slic_fused.py, whose
+step is kernel K3 on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -110,7 +111,10 @@ def _assign_plain(feats: torch.Tensor, centers: torch.Tensor, width: int, ws: fl
 
 def slic(img: torch.Tensor, num_components: int = 100, compactness: float = 10.0, iterations: int = 10) -> torch.Tensor:
     """img: (3, H, W) RGB in [0, 1] -> (H, W) int32 ids in
-    [0, num_components): the plain whole-image Lloyd loop."""
+    [0, num_components): the plain whole-image Lloyd loop on the CPU,
+    `slic_batch` (K3) on anything else."""
+    if img.device.type != "cpu":
+        return slic_batch(img[None], num_components, compactness, iterations)[0]
     _, H, W = img.shape
     K = num_components
     ws, win2 = slic_geometry(K, compactness, H, W)

@@ -148,7 +148,7 @@ def slic_step(feats: torch.Tensor, centers: torch.Tensor, width: int, ws: float,
             _cuda.stream_of(feats),
         )
     _cuda.check(err, "slic_step")
-    slic_step.launches += 1
+    _cuda.count_launch(slic_step)
     return scratch.ids, new_centers
 
 

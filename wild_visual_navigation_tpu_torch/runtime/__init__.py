@@ -1,1 +1,12 @@
-"""Per-frame inference of the port."""
+from .replay import (
+    CameraFrame,
+    ReplayReport,
+    Sequence,
+    StateSample,
+    load_sequence,
+    run_replay,
+    save_sequence,
+    synthetic_sequence,
+)
+from .runtime import InferenceResult, SystemState, WVNRuntime
+from .scheduler import Scheduler

@@ -8,6 +8,9 @@ Port of wild_visual_navigation_tpu/runtime/fused.py (its DINO frame function):
 
 The ViT and the head are nn.Modules that carry their weights, so the
 returned `frame(cg_state, img)` takes only what changes between frames.
+A caller that swaps heads while frames run (the runtime's params mailbox)
+passes its own snapshot as `head=`: the frame then reads every layer from
+that one module, never from one that training updates in place.
 """
 
 from __future__ import annotations
@@ -59,9 +62,10 @@ def build_fused_frame_fn(
     score_at_patch_res: bool = False,
     input_width: int | None = None,
 ):
-    """Returns frame(cg_state, img) -> FrameResult, with
-    frame.frames_batch(cg_state, imgs) -> FrameResult of stacked fields
-    and frame.tail(cg_state, feat, segs), the post-backbone stage.
+    """Returns frame(cg_state, img, head=None) -> FrameResult, with
+    frame.frames_batch(cg_state, imgs, head=None) -> FrameResult of
+    stacked fields and frame.tail(cg_state, feat, segs, head=None), the
+    post-backbone stage. `head` scores in place of `mlp`.
 
     img: (1, 3, H0, W0) in [0, 1], float or uint8. Output maps are
     (input_size, input_width or input_size). Square configs resize the
@@ -76,6 +80,7 @@ def build_fused_frame_fn(
     if W != H and (H % ps or W % ps):
         raise ValueError(f"rectangular fused config must be patch-aligned: {H}x{W} with patch {ps}")
     S = num_segments
+    default_mlp = mlp
 
     def _segments(x):
         if segmentation_type == "slic":
@@ -87,7 +92,7 @@ def build_fused_frame_fn(
     if segmentation_type == "grid":
         grid_graph = segment_ops.grid_constants(H, W, cell_size, S, max_edges=max_edges)
 
-    def _one(cg_state, feat_i, seg, trav=None, conf=None):
+    def _one(mlp, cg_state, feat_i, seg, trav=None, conf=None):
         """Per-image tail. feat_i (D, Hp, Wp); seg (H, W); trav / conf
         are given when the batch was scored per pixel already."""
         if grid_graph is not None:
@@ -115,31 +120,32 @@ def build_fused_frame_fn(
         return FrameResult(trav, conf, pooled, counts > 0, seg, edges, edge_valid, centers)
 
     @torch.no_grad()
-    def tail(cg_state: ConfidenceState, feat: torch.Tensor, segs: torch.Tensor) -> FrameResult:
+    def tail(cg_state: ConfidenceState, feat: torch.Tensor, segs: torch.Tensor, head=None) -> FrameResult:
         """feat (B, D, Hp, Wp), segs (B, H, W) -> FrameResult with a
         leading batch axis on every field."""
+        mlp = default_mlp if head is None else head
         trav_b = conf_b = None
         if prediction_per_pixel and not score_at_patch_res and pixelwise_supports(mlp):
             # Gram per-pixel scorer over the whole batch: one K2 launch
             trav_b, conf_b = pixelwise_score(mlp, feat, H, W, cg_cfg, cg_state)
         outs = [
-            _one(cg_state, feat[b], segs[b], None if trav_b is None else trav_b[b], None if conf_b is None else conf_b[b])
+            _one(mlp, cg_state, feat[b], segs[b], None if trav_b is None else trav_b[b], None if conf_b is None else conf_b[b])
             for b in range(feat.shape[0])
         ]
         return FrameResult(*(torch.stack(field) for field in zip(*outs)))
 
     @torch.no_grad()
-    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor) -> FrameResult:
+    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
         """(B, 3, H0, W0) -> FrameResult with a leading batch axis; the
         backbone, SLIC and the per-pixel scorer each run once on the batch."""
         if imgs.dtype == torch.uint8:
             imgs = imgs.float() / 255.0
         x = resize_image(imgs, H, W)
         feat = dense_features(vit, imagenet_normalize(x))  # (B, D, Hp, Wp)
-        return tail(cg_state, feat, _segments(x))
+        return tail(cg_state, feat, _segments(x), head)
 
-    def frame(cg_state: ConfidenceState, img: torch.Tensor) -> FrameResult:
-        return FrameResult(*(f[0] for f in frames_batch(cg_state, img)))
+    def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
+        return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))
 
     frame.frames_batch = frames_batch
     frame.tail = tail

@@ -14,8 +14,11 @@ Layout changes:
 
 `train_state_from_jax` carries a JAX estimator's whole optimisation
 state (params, optax Adam moments, confidence state, step) into the
-port's estimator. `load_head_npz` reads the converted head written by
-tools/convert_head_to_torch.py.
+port's estimator. A whole JAX runtime moves into a port runtime in two
+calls: `WVNRuntime(backbone_params=vit_state_from_jax(backbone))`, then
+`runtime.adopt_train_state(**train_state_from_jax(...))`, which also
+publishes the head to inference. `load_head_npz` reads the converted head
+written by tools/convert_head_to_torch.py.
 """
 
 from __future__ import annotations
