@@ -5,7 +5,7 @@
 
 Builds the port's four CUDA kernels from wild_visual_navigation_tpu_torch/
 csrc/ (one nvcc per source, in parallel), holds each against its plain
-PyTorch version at the main path's shapes, and drives two paths:
+PyTorch version at the main path's shapes, and drives these paths:
 
   * the per-frame path (DINO ViT-S/8 at 224 px with seeded weights, SLIC
     with 100 segments, the converted demo head, per-pixel prediction)
@@ -25,15 +25,25 @@ PyTorch version at the main path's shapes, and drives two paths:
     frames arrive, and the two-process topology (a LearningNode spawned on
     the same card, fed by a FeatureExtractorNode over a Unix socket, its
     hot-swap file reloaded); then the callbacks' latencies beside the bare
-    frame's.
+    frame's;
+  * SLIC at 448 px: the card's 10 iterations against the plain whole-image
+    loop, and what the other order does to a ViT-S/8 frame at 448;
+  * the STEGO path (BASELINE config 3): K2 with the 90-d STEGO head, the
+    fused STEGO frame at 448 (DINO ViT-B/8, the STEGO head, 20 k-means
+    clusters) scored per pixel and per segment against the same frame on
+    the CPU, and WVNRuntime in the Jackal robot's profile
+    (configs/robots/jackal.yaml: stego x stego at 224) replaying the same
+    mission (K1 12, K2 1, K3 0 per accepted frame, K4 1 per flush), its
+    first 20 frames also on the CPU, and the frame's latency at 224 and 448.
 
 It checks each path's outputs and that each went through its kernels, and
 times the kernels, the frame, a supervision flush and a train step. It
 also prints each kernel body's registers, shared memory and spills
 (ptxas's report of the build), the tensor-core instructions in the SASS by
 function (HGMMA in K1's bf16 body, HMMA in K2: each must be above 0), K1
-at five ViT shapes beside SDPA, K1 on strided views of a qkv buffer, K2 at
-B=1, B=4 and a ragged output, K3 with the bound of the (pixel, candidate)
+at eight ViT shapes beside SDPA (ViT-S/8, ViT-S/14, ViT-B/14 and ViT-B/8),
+K1 on strided views of a qkv buffer, K2 at B=1, B=4 and a ragged output and
+with the STEGO head at 224 and 448, K3 with the bound of the (pixel, candidate)
 pairs it searched, `slic_batch` at B=1 and B=4, K4 from points (hulls
 bitwise equal to `convex_hull`) and the fill alone, and a torch.profiler
 breakdown of 10 frames. Every phase raises on failure.
@@ -42,7 +52,8 @@ The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches in the runtime's replay of the mission
 (counts set to 0 just before it, read just after), errors, times and
 bounds (K4's of the fill alone, as the TPU kernel it replaces; its launch
-from points under from_points_* keys). Without a CUDA device, or outside
+from points under from_points_* keys), and `stego_launches`, each kernel's
+launches in the Jackal runtime's STEGO replay (counted the same way). Without a CUDA device, or outside
 the repository, it exits non-zero and prints no result.
 """
 
@@ -74,7 +85,29 @@ ATTN_SHAPES = {
     (1, 6, 1025, 64): "ViT-S/14 at 448",
     (1, 6, 3137, 64): "ViT-S/8 at 448",
     (1, 12, 2117, 64): "ViT-B/14 at 644",
+    (1, 12, 785, 64): "ViT-B/8 at 224, the Jackal runtime's STEGO frame",
+    (4, 12, 785, 64): "ViT-B/8 at 224, the STEGO frames_batch B=4",
+    (1, 12, 3137, 64): "ViT-B/8 at 448, StegoInterface's default",
 }
+# SLIC at 448: the least label agreement of the card's 10 iterations with the plain whole-image loop (the
+# card's first reading: 0.9998 on a random image, 0.9998 to 1.0 on four demo frames, NVIDIA H100 80GB HBM3)
+SLIC_448_MIN = 0.99
+# the STEGO frame at 448 against the CPU: the whole frame (bf16 backbones that round differently, then
+# k-means on codes that differ by that much) and the CPU tail fed the card's codes (K2 against its plain
+# version, k-means in another summation order)
+STEGO_CPU_TOL = {"agree": 0.95, "mae": 1e-2, "feat": 0.5}  # first reading: 0.9904, 7.2e-4 and 3.0e-3, 0.130
+STEGO_SAME_CODES_TOL = {"agree": 0.99, "mae": 1e-3, "feat": 1e-3}
+STEGO_LOSS_RTOL = 5e-2  # the STEGO runtime's per-step losses, card against CPU
+
+
+def k1_bf16_check(out, ref, q, k, v, plain, atol_of) -> tuple[float, float, float]:
+    """K1's bf16 error against the plain version, its limit (bf16_atol:
+    2**-6 of the largest |output|, 2 to 4 bf16 units there) and the error of
+    the plain version without the last kv tile of 64 rows, which the limit
+    must fail: the check would catch a kernel that skipped that tile."""
+    keep = (q.shape[2] - 1) // 64 * 64
+    tail = float((plain(q, k[:, :, :keep], v[:, :, :keep], 0.125).float() - ref).abs().max())
+    return float((out.float() - ref).abs().max()), atol_of(ref), tail
 
 
 def card_line() -> str:
@@ -203,9 +236,10 @@ def slic_work(centers, H: int, W: int, ws: float, win2: float) -> tuple[int, int
     return int((n_cand * pix).sum()), int((d2s.min(1).values > win2).sum())
 
 
-def profile_frames(frame, cg_state, demo, dev, card: str, n: int = 10) -> None:
+def profile_frames(frame, cg_state, demo, dev, card: str, n: int = 10, tag: str = "profile") -> None:
     """torch.profiler over n frames: device kernel time per frame by
-    kernel, and the device's busy share of the wall time."""
+    kernel, and the device's busy share of the wall time, on lines
+    starting with [tag]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -220,11 +254,11 @@ def profile_frames(frame, cg_state, demo, dev, card: str, n: int = 10) -> None:
     rows = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA") and r.device_time_total > 0]
     rows.sort(key=lambda r: r.device_time_total, reverse=True)
     busy = sum(r.device_time_total for r in rows) / 1e3
-    print(f"[profile] {n} frames B=1: wall {wall:.2f} ms under the profiler, device kernels {busy:.3f} ms "
+    print(f"[{tag}] {n} frames B=1: wall {wall:.2f} ms under the profiler, device kernels {busy:.3f} ms "
           f"({busy / n:.3f} ms per frame), busy share {busy / wall:.3f}; {sum(r.count for r in rows) / n:.0f} kernel "
           f"launches per frame | {card}")
     for r in rows[:14]:
-        print(f"[profile]   {r.device_time_total / 1e3 / n:8.4f} ms/frame  {r.count / n:6.1f} calls/frame  "
+        print(f"[{tag}]   {r.device_time_total / 1e3 / n:8.4f} ms/frame  {r.count / n:6.1f} calls/frame  "
               f"{r.key[:90]}")
 
 
@@ -758,6 +792,303 @@ def runtime_phase(dev, card: str, seq: dict, seq_path: Path, learn: dict) -> dic
     return counts
 
 
+STEGO_HEAD = {"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": 90, "hidden_sizes": [256, 32, 1],
+                                                     "reconstruction": True}}
+
+
+def k2_bound(ops, n_px: int) -> tuple[dict, dict, int]:
+    """K2's bound over n_px output pixels. Bytes: its operands (hw at the
+    patch rows, zsts, the weights and row tables) in, the two fp32 maps out.
+    Operations per pixel, with K1 and K from the head: the K1 -> K product on
+    the tensor cores (2 K K1); the H lerp of hw, two products and a sum per
+    channel in bf16x2 (3 K1); in fp32 the bias and relu (2 K), the logit
+    (2 K), the quadratic form over the upper triangle of the symmetric M
+    (K (K + 1)), the z lerp (3 K), 2 x1 . (v - z) (3 K) and the rest of reco
+    and the sigmoid (16). Returns (bound, operations by type, bytes)."""
+    K1, K = ops.w1t.shape[1], ops.w1t.shape[0]
+    k2_ops = {"bf16_tensor": 2 * K * K1 * n_px, "bf16x2": 3 * K1 * n_px, "fp32": (K * (K + 1) + 10 * K + 16) * n_px}
+    k2_bytes = sum(x.numel() * x.element_size() for x in ops) + 2 * n_px * 4
+    return bound(k2_bytes, k2_ops), k2_ops, k2_bytes
+
+
+def jackal_params():
+    """The Jackal robot's profile (configs/default.yaml, then
+    configs/robots/jackal.yaml: stego features and segments, ViT-B/8 at 224,
+    per-pixel prediction) with the callback rates raised for a replay at
+    virtual time."""
+    import dataclasses
+
+    from wild_visual_navigation_tpu_torch.utils.loading import load_node_params
+
+    fe, ln = load_node_params(str(ROOT / "configs/default.yaml"), str(ROOT / "configs/robots/jackal.yaml"))
+    return (dataclasses.replace(fe, image_callback_rate=1e9), dataclasses.replace(ln, supervision_callback_rate=1e9))
+
+
+def make_jackal_runtime(dev, like=None):
+    """WVNRuntime in the Jackal profile (buffer 256, fan-out 32, backbone seed
+    0); `like` hands over another such runtime's ViT-B/8 weights, so the
+    CPU twin skips the random draw."""
+    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
+
+    fe, ln = jackal_params()
+    backbone = None
+    if like is not None:
+        backbone = {k: v.cpu() for k, v in like.feature_extractor._extractor.vit.state_dict().items()}
+    return WVNRuntime(fe_params=fe, ln_params=ln, seed=0, buffer_capacity=256, reprojection_fanout=32, device=dev,
+                      backbone_params=backbone)
+
+
+def record_train_losses(rt) -> list:
+    """Every optimisation step's loss, kept as the device scalar it is and
+    read after the run."""
+    out, train = [], rt.estimator.train
+
+    def recorded(convert_losses=True):
+        before = rt.estimator.step
+        res = train(convert_losses=convert_losses)
+        if rt.estimator.step > before:
+            out.append(res["loss_total"])
+        return res
+
+    rt.estimator.train = recorded
+    return out
+
+
+def slic_448_phase(dev, card: str, g, mlp, cg_state, demo) -> None:
+    """SLIC at 448 px: the card's 10-iteration slic_batch (K3, per-tile sums)
+    against the plain whole-image loop on the same images, and what the other
+    order does to a ViT-S/8 frame at 448 that scores per segment (per-pixel
+    maps do not depend on the segments)."""
+    import torch
+
+    from wild_visual_navigation_tpu_torch.feature_extractor.dino import DinoInterface
+    from wild_visual_navigation_tpu_torch.models.vit import dense_features
+    from wild_visual_navigation_tpu_torch.ops.resize import imagenet_normalize, resize_image
+    from wild_visual_navigation_tpu_torch.ops.slic import slic_batch
+    from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_frame_fn
+    from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig
+
+    imgs = {"random": torch.rand(1, 3, 448, 448, device=dev, generator=g),
+            "demo frames 0-3": resize_image(torch.from_numpy(demo[:4]).to(dev), 448, 448)}
+    agree, segs = {}, {}
+    for name, x in imgs.items():
+        t0 = time.perf_counter()
+        segs[name] = slic_batch(x), slic_batch(x.cpu()).to(dev)
+        plain_s = time.perf_counter() - t0
+        agree[name] = [float((segs[name][0][b] == segs[name][1][b]).float().mean()) for b in range(x.shape[0])]
+    print(f"[slic 448] 10 iterations, K=100, card (K3) against the plain whole-image loop, label agreement: "
+          + "; ".join(f"{k} {[round(a, 4) for a in v]}" for k, v in agree.items()) + f" (min {SLIC_448_MIN}); the "
+          f"plain loop took {plain_s:.1f} s for the 4 demo frames on the host", flush=True)
+    require(min(min(v) for v in agree.values()) >= SLIC_448_MIN, "SLIC at 448 agrees with the plain loop")
+
+    dino = DinoInterface(input_size=448, device=dev, seed=0)
+    frame = build_fused_frame_fn(dino.vit, mlp, ConfidenceConfig(std_factor=0.5), 448, prediction_per_pixel=False)
+    x = imgs["demo frames 0-3"]
+    feat = dense_features(dino.vit, imagenet_normalize(x))
+    a, b = (frame.tail(cg_state, feat, seg) for seg in segs["demo frames 0-3"])
+    t_mae = float((a.traversability - b.traversability).abs().mean())
+    c_mae = float((a.confidence - b.confidence).abs().mean())
+    print(f"[slic 448] ViT-S/8 frame at 448 scoring per segment, demo frames 0-3, K3's segments against the plain "
+          f"loop's: trav MAE {t_mae:.3e}, conf MAE {c_mae:.3e} (tol 5e-2 each) | {card}", flush=True)
+    require(t_mae <= 5e-2 and c_mae <= 5e-2, "the per-segment maps at 448 agree across the two SLIC orders")
+
+
+def stego_phase(dev, card: str, g, demo, seq_path: Path) -> dict:
+    """The STEGO path (BASELINE config 3; the Jackal robot's profile): K2 with
+    the 90-d STEGO head, the fused STEGO frame at 448 in both scoring forms
+    against the same frame on the CPU, the Jackal runtime's replay of the
+    recorded mission at 224 (and its first 20 frames on the CPU), and the
+    frame's latency at 224 and 448. Returns the replay's launches and K2's
+    D = 90 times."""
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.feature_extractor.stego import StegoInterface
+    from wild_visual_navigation_tpu_torch.models.registry import get_model
+    from wild_visual_navigation_tpu_torch.ops.flash_attention import bf16_atol, flash_attention, xla_attention
+    from wild_visual_navigation_tpu_torch.ops.pixelwise_fused import (
+        fused_precompute,
+        pixelwise_score_fused,
+        score_pixels,
+        score_pixels_plain,
+    )
+    from wild_visual_navigation_tpu_torch.ops.resize import imagenet_normalize, resize_image
+    from wild_visual_navigation_tpu_torch.runtime import load_sequence, run_replay
+    from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_stego_frame_fn
+    from wild_visual_navigation_tpu_torch.runtime.replay import Sequence
+    from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig, confidence_init
+
+    out = {}
+    # 1. K1 on strided views of ViT-B's qkv product (12 heads)
+    for B, S in ((1, 3137), (4, 785)):
+        buf = torch.randn(B, S, 3, 12, 64, device=dev, generator=g).to(torch.bfloat16)
+        q, k, v = buf.permute(2, 0, 3, 1, 4).unbind(0)
+        ref = xla_attention(q, k, v, 0.125).float()
+        err, tol, tail = k1_bf16_check(flash_attention(q, k, v, 0.125), ref, q, k, v, xla_attention, bf16_atol)
+        print(f"[stego K1] strided views of a ({B}, {S}, 3, 12, 64) bf16 qkv buffer (ViT-B/8): max abs err "
+              f"{err:.3e} (tol {tol:.3e}; without the last kv tile the plain version errs by {tail:.3e})")
+        require(err <= tol < tail, f"K1 on ViT-B's strided qkv views at B={B}, S={S}")
+
+    # 2. K2 with the STEGO head [90 -> 256 -> 32 -> 91]
+    head = get_model(STEGO_HEAD, device=dev, generator=torch.Generator().manual_seed(1)).eval().requires_grad_(False)
+    for B in (1, 4):
+        for hp, size in ((28, 224), (56, 448)):
+            feat = torch.randn(B, 90, hp, hp, device=dev, generator=g)
+            with torch.no_grad():
+                ops = fused_precompute(head, feat, size, size)
+                trav, reco = score_pixels(ops, 90)
+                trav_p, reco_p = score_pixels_plain(ops, 90)
+            terr = float((trav - trav_p).abs().max())
+            rbound = float(((reco - reco_p).abs() - 1e-3 * reco_p.abs()).max())
+            print(f"[stego K2] feat ({B}, 90, {hp}, {hp}) -> {size}x{size}, STEGO head: trav max abs err {terr:.3e} "
+                  f"(tol 2e-3); reco max abs err {float((reco - reco_p).abs().max()):.3e} at max |reco| "
+                  f"{float(reco_p.abs().max()):.3e} (tol rtol 1e-3 + atol 1e-4)")
+            require(terr <= 2e-3 and rbound <= 1e-4, f"K2 with D = 90 at B={B}, {size}")
+    with torch.no_grad():
+        for hp, size in ((28, 224), (56, 448)):
+            opss = [(fused_precompute(head, torch.randn(1, 90, hp, hp, device=dev, generator=g), size, size),)
+                    for _ in range(WARMUP + N_TIMED)]
+            k_ms = device_ms(lambda o: score_pixels(o, 90), opss)
+            p_ms = device_ms(lambda o: score_pixels_plain(o, 90), opss)
+            b2, _, k2_bytes = k2_bound(opss[0][0], size * size)
+            print(f"[time] K2 pixelwise_score {size}x{size} from (1, 90, {hp}, {hp}), STEGO head: kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound {b2['bound_ms']:.6f} ms ({b2['bound_by']}: {k2_bytes} "
+                  f"bytes), share of the bound {b2['bound_ms'] / k_ms:.3f} | {card}", flush=True)
+            out[f"k2_d90_{size}"] = {"ms": k_ms, "plain_ms": p_ms, **b2}
+
+    # 3. the fused STEGO frame at 448, per pixel and per segment
+    si = StegoInterface(input_size=448, device=dev, seed=0)
+    frames = {pp: build_fused_stego_frame_fn(si, head, ConfidenceConfig(std_factor=0.5), 448, prediction_per_pixel=pp)
+              for pp in (True, False)}
+    x0 = torch.from_numpy(demo[:1]).to(dev)
+    with torch.no_grad():
+        codes0 = si.head(si.vit(imagenet_normalize(resize_image(x0, 448, 448)))["patch_tokens"])["code"]
+        _, reco0 = pixelwise_score_fused(head, codes0.reshape(1, 56, 56, 90).permute(0, 3, 1, 2), 448, 448)
+    # confidence statistics at the scale of this head's reconstruction error
+    cg = confidence_init(dev)._replace(mean=reco0.mean(), std=reco0.std())
+    for pp, name in ((True, "per pixel"), (False, "per segment")):
+        want = {"flash_attention": 12, "pixelwise_score": int(pp), "slic_step": 0, "fill_hulls": 0}
+        torch.cuda.synchronize()
+        port.reset_launch_counts()
+        for i in range(5):
+            before = port.launch_counts()
+            res = frames[pp](cg, torch.from_numpy(demo[i : i + 1]).to(dev))
+            delta = {k: v - before[k] for k, v in port.launch_counts().items()}
+            require(delta == want, f"launches of a STEGO frame scored {name}: {delta}")
+            for m in (res.traversability, res.confidence):
+                require(tuple(m.shape) == (448, 448) and bool(torch.isfinite(m).all())
+                        and float(m.min()) >= 0 and float(m.max()) <= 1, "STEGO maps finite, in [0, 1]")
+            require(int(res.segments.min()) >= 0 and int(res.segments.max()) < 20, "STEGO segment ids in [0, 20)")
+        print(f"[stego frame] 448, scored {name}: 5 demo frames, each launched {delta}; "
+              f"{int(res.feat_valid.sum())} of 20 clusters non-empty in the last")
+
+    # the same frame on the CPU through the plain versions, the same weights and initial indices
+    si_cpu = StegoInterface(input_size=448, device="cpu", seed=0,
+                            backbone_params={k: v.cpu() for k, v in si.vit.state_dict().items()},
+                            head_params={k: v.cpu() for k, v in si.head.state_dict().items()})
+    head_cpu = get_model(STEGO_HEAD)
+    head_cpu.load_state_dict({k: v.cpu() for k, v in head.state_dict().items()})
+    frames_cpu = {pp: build_fused_stego_frame_fn(si_cpu, head_cpu, ConfidenceConfig(std_factor=0.5), 448,
+                                                 prediction_per_pixel=pp) for pp in (True, False)}
+    cg_cpu = confidence_init()._replace(mean=reco0.mean().cpu(), std=reco0.std().cpu())
+    x = torch.from_numpy(demo[10:11])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        codes_cpu = si_cpu.head(si_cpu.vit(imagenet_normalize(resize_image(x, 448, 448)))["patch_tokens"])["code"]
+        codes_card = si.head(si.vit(imagenet_normalize(resize_image(x.to(dev), 448, 448)))["patch_tokens"])["code"]
+    cpu_s = time.perf_counter() - t0
+    code_diff = float((codes_card.cpu() - codes_cpu).abs().max())
+    for pp, name in ((True, "per pixel"), (False, "per segment")):
+        got = frames[pp](cg, x.to(dev))
+        ref = frames_cpu[pp].tail(cg_cpu, codes_cpu)  # the CPU frame: its own backbone's codes
+        same = frames_cpu[pp].tail(cg_cpu, codes_card.cpu())  # the card's codes through the CPU tail
+        for label, r, tol in (("the CPU frame", ref, STEGO_CPU_TOL), ("the card's codes on the CPU", same,
+                                                                      STEGO_SAME_CODES_TOL)):
+            agree = float((got.segments.cpu() == r.segments[0]).float().mean())
+            t_mae = float((got.traversability.cpu() - r.traversability[0]).abs().mean())
+            c_mae = float((got.confidence.cpu() - r.confidence[0]).abs().mean())
+            both = (got.feat_valid.cpu() & r.feat_valid[0])
+            f_diff = float((got.features.cpu() - r.features[0])[both].abs().max())
+            print(f"[stego frame] 448 scored {name}, demo frame 10 against {label}: k-means label agreement "
+                  f"{agree:.4f} (min {tol['agree']}), trav MAE {t_mae:.3e} (tol {tol['mae']:.0e}), conf MAE "
+                  f"{c_mae:.3e} (tol {tol['mae']:.0e}), pooled code max abs diff {f_diff:.3e} (tol {tol['feat']})")
+            require(agree >= tol["agree"] and t_mae <= tol["mae"] and c_mae <= tol["mae"] and f_diff <= tol["feat"],
+                    f"the STEGO frame ({name}) agrees with {label}")
+    print(f"[stego frame] the CPU backbone at 448 (bf16) and the card's: codes max abs diff {code_diff:.3e}; the CPU's "
+          f"ViT-B/8 took {cpu_s:.1f} s", flush=True)
+    del si_cpu, frames_cpu
+
+    # 4. the Jackal runtime at 224: the recorded mission through run_replay
+    sequence = load_sequence(str(seq_path))
+    rt = make_jackal_runtime(dev)
+    fe = rt.fe_params
+    require((fe.feature_type, fe.segmentation_type, fe.network_input_image_height, fe.prediction_per_pixel)
+            == ("stego", "stego", 224, True) and rt._fused_frame is not None, "the Jackal profile: fused stego at 224")
+    t0 = time.perf_counter()
+    rep, losses, counts = replay_runtime(rt, sequence)
+    replay_s = time.perf_counter() - t0
+    n = max(rep.frames_processed, 1)
+    per = {k: counts[k] / n for k in ("flash_attention", "pixelwise_score", "slic_step")}
+    k4 = counts["fill_hulls"] / max(rep.supervision_updates, 1)
+    print(f"[stego runtime] Jackal profile (stego x stego, ViT-B/8 at 224, 20 clusters, per-pixel), run_replay of "
+          f"{len(sequence.frames)} frames + {len(sequence.states)} robot states in {replay_s:.2f} s: "
+          f"{rep.frames_processed} frames processed, {rep.frames_gated} gated, {rep.supervision_updates} supervision "
+          f"updates, {rep.train_steps} train steps, {rep.valid_nodes} valid nodes; losses read back, first "
+          f"{[round(x, 5) for x in losses[:3]]}, last {[round(x, 5) for x in losses[-3:]]}; launches {counts}: per "
+          f"accepted frame K1 {per['flash_attention']:.2f}, K2 {per['pixelwise_score']:.2f}, K3 "
+          f"{per['slic_step']:.2f}; per flush K4 {k4:.2f}", flush=True)
+    require(rep.frames_processed == len(sequence.frames) and rep.frames_gated == 0, "every STEGO frame accepted")
+    require(per == {"flash_attention": 12, "pixelwise_score": 1, "slic_step": 0} and k4 == 1,
+            "K1 12, K2 1, K3 0 per accepted STEGO frame and K4 1 per flush")
+    require(rep.supervision_updates > 0 and rep.train_steps > 0 and rep.valid_nodes >= 5, "the STEGO mission learns")
+    require(all(np.isfinite(losses)), "finite losses")
+    trav, conf = rep.last_result.to_numpy()
+    require(trav.shape == (224, 224) and np.isfinite(trav).all() and np.isfinite(conf).all()
+            and trav.min() >= 0 and trav.max() <= 1, "the last STEGO frame's maps finite, in [0, 1]")
+    out["launches"] = counts
+
+    # its first 20 frames (10 would train no step) on the card and on the CPU
+    last = sequence.frames[19].stamp
+    head20 = Sequence(frames=sequence.frames[:20], states=[s for s in sequence.states if s.stamp <= last])
+    runs = {}
+    for d in (dev, "cpu"):
+        r = make_jackal_runtime(d, like=rt)
+        step_losses = record_train_losses(r)
+        t0 = time.perf_counter()
+        rp = run_replay(r, head20)
+        runs[str(d)] = (r, rp, [float(x) for x in step_losses], time.perf_counter() - t0)
+    (r_k, rp_k, l_k, _), (r_c, rp_c, l_c, cpu_s) = runs[str(dev)], runs["cpu"]
+    occupied = r_k.estimator.buffer.valid.cpu()
+    m_k, m_c = r_k.estimator.buffer.supervision_mask.cpu()[occupied], r_c.estimator.buffer.supervision_mask[occupied]
+    mask_differ = int((m_k != m_c).sum())
+    loss_diff = max((abs(a - b) / abs(b) for a, b in zip(l_k, l_c)), default=float("nan"))
+    same = all(getattr(rp_k, f) == getattr(rp_c, f) for f in
+               ("frames_processed", "supervision_updates", "train_steps", "valid_nodes"))
+    print(f"[stego runtime] the first 20 frames on the card and on the CPU ({cpu_s:.1f} s): counts equal {same} "
+          f"({rp_c.frames_processed} frames, {rp_c.supervision_updates} updates, {rp_c.train_steps} steps, "
+          f"{rp_c.valid_nodes} valid nodes); supervision masks differ in {mask_differ} of {m_k.numel()} pixels "
+          f"(max {1e-4 * m_k.numel():.0f}); per-step losses card {[round(x, 5) for x in l_k]}, CPU "
+          f"{[round(x, 5) for x in l_c]}, max relative difference {loss_diff:.3e} (tol {STEGO_LOSS_RTOL})", flush=True)
+    require(same and rp_k.train_steps > 0 and len(l_k) == len(l_c) == rp_k.train_steps, "the same counts on the CPU")
+    require(mask_differ <= 1e-4 * m_k.numel() and loss_diff <= STEGO_LOSS_RTOL,
+            "masks and losses agree with the CPU replay")
+    del runs, r_k, r_c
+
+    # 5. latencies: the STEGO frame at 224 (the runtime's) and at 448, B=1
+    frame224 = rt._fused_frame
+    head224, cg224 = rt.inference_head
+    for size, fn, c, hd in ((224, frame224, cg224, head224), (448, frames[True], cg, None)):
+        ins = [(c, torch.from_numpy(demo[i % len(demo) : i % len(demo) + 1]).to(dev), hd)
+               for i in range(WARMUP + N_TIMED)]
+        lat = wall_ms(fn, ins)
+        prof = profile_calls(fn, ins[:10])
+        print(f"[time] STEGO frame B=1 at {size} (per pixel): {lat:.3f} ms on the host clock; under the profiler "
+              f"{prof[0]:.3f} ms per frame, device kernels {prof[1]:.3f} ms, {prof[2]:.0f} launches per frame, busy "
+              f"share {prof[3]:.3f} | {card}", flush=True)
+    profile_frames(frames[True], cg, demo, dev, card, tag="stego profile 448")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -770,7 +1101,7 @@ def main() -> int:
     from wild_visual_navigation_tpu_torch.feature_extractor.dino import DinoInterface
     from wild_visual_navigation_tpu_torch.models.registry import get_model
     from wild_visual_navigation_tpu_torch.ops import _cuda
-    from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention, xla_attention
+    from wild_visual_navigation_tpu_torch.ops.flash_attention import bf16_atol, flash_attention, xla_attention
     from wild_visual_navigation_tpu_torch.ops.pixelwise_fused import fused_precompute, score_pixels, score_pixels_plain
     from wild_visual_navigation_tpu_torch.ops.rasterize import convex_hull
     from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls, fill_hulls_plain, hull_fill
@@ -825,25 +1156,35 @@ def main() -> int:
     # ---- 3. each kernel against its plain version at the main path's shapes
     attn_cases = []
     for B in (1, 4):
-        for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn(B, 6, 785, 64, device=dev, generator=g).to(dtype) for _ in range(3))
-            err = float((flash_attention(q, k, v, 0.125).float() - xla_attention(q, k, v, 0.125).float()).abs().max())
-            print(f"[K1 flash_attention] (B={B}, 6, 785, 64) {str(dtype)[6:]}: max abs err {err:.3e} (tol {tol:.0e})")
-            require(err <= tol, f"K1 at B={B} {dtype}")
+            out, ref = flash_attention(q, k, v, 0.125).float(), xla_attention(q, k, v, 0.125).float()
+            if dtype == torch.bfloat16:
+                err, tol, tail = k1_bf16_check(out, ref, q, k, v, xla_attention, bf16_atol)
+            else:
+                err, tol, tail = float((out - ref).abs().max()), 1e-4, float("inf")
+            print(f"[K1 flash_attention] (B={B}, 6, 785, 64) {str(dtype)[6:]}: max abs err {err:.3e} (tol {tol:.3e})")
+            require(err <= tol < tail, f"K1 at B={B} {dtype}")
             attn_cases.append((B, dtype, err))
     for shape in list(ATTN_SHAPES)[2:]:
         q, k, v = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16) for _ in range(3))
-        err = float((flash_attention(q, k, v, 0.125).float() - xla_attention(q, k, v, 0.125).float()).abs().max())
-        print(f"[K1 flash_attention] {shape} bfloat16 ({ATTN_SHAPES[shape]}): max abs err {err:.3e} (tol 3e-02)")
-        require(err <= 3e-2, f"K1 at {shape}")
-    for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
+        ref = xla_attention(q, k, v, 0.125).float()
+        err, tol, tail = k1_bf16_check(flash_attention(q, k, v, 0.125), ref, q, k, v, xla_attention, bf16_atol)
+        print(f"[K1 flash_attention] {shape} bfloat16 ({ATTN_SHAPES[shape]}): max abs err {err:.3e} (tol {tol:.3e}; "
+              f"without the last kv tile the plain version errs by {tail:.3e})")
+        require(err <= tol < tail, f"K1 at {shape}")
+    for dtype in (torch.bfloat16, torch.float32):
         buf = torch.randn(2, 785, 3, 6, 64, device=dev, generator=g).to(dtype)  # (B, S, 3, H, Dh) as the ViT's qkv
         q, k, v = buf.permute(2, 0, 3, 1, 4).unbind(0)
         out = flash_attention(q, k, v, 0.125)
-        err = float((out.float() - xla_attention(q, k, v, 0.125).float()).abs().max())
+        ref = xla_attention(q, k, v, 0.125).float()
+        if dtype == torch.bfloat16:
+            err, tol, tail = k1_bf16_check(out, ref, q, k, v, xla_attention, bf16_atol)
+        else:
+            err, tol, tail = float((out.float() - ref).abs().max()), 1e-4, float("inf")
         print(f"[K1 flash_attention] strided views of a (2, 785, 3, 6, 64) {str(dtype)[6:]} qkv buffer: max abs err "
-              f"{err:.3e} (tol {tol:.0e}); output strides {out.stride()} (a (B, S, H, D) buffer)")
-        require(err <= tol and out.stride() == (785 * 6 * 64, 64, 6 * 64, 1), f"K1 on strided views, {dtype}")
+              f"{err:.3e} (tol {tol:.3e}); output strides {out.stride()} (a (B, S, H, D) buffer)")
+        require(err <= tol < tail and out.stride() == (785 * 6 * 64, 64, 6 * 64, 1), f"K1 on strided views, {dtype}")
     results["flash_attention"] = {"max_abs_err": attn_cases[0][2]}
 
     for B, out in ((1, (224, 224)), (4, (224, 224)), (1, (23, 37))):
@@ -1041,6 +1382,16 @@ def main() -> int:
     require(all(v > 0 for v in runtime_launches.values()), "every kernel launched on the runtime's path")
     launches = runtime_launches
 
+    # ---- 4d. SLIC at 448: the card's per-tile order against the plain whole-image loop
+    slic_448_phase(dev, card, g, mlp, cg_state, demo)
+
+    # ---- 4e. the STEGO path: K2 at D = 90, the STEGO frame at 448, the Jackal runtime at 224
+    stego = stego_phase(dev, card, g, demo, ROOT / "assets/sequences/demo_mission.npz")
+    stego_launches = stego["launches"]
+    require(stego_launches["slic_step"] == 0 and all(stego_launches[k] > 0 for k in
+                                                     ("flash_attention", "pixelwise_score", "fill_hulls")),
+            "the STEGO replay launched K1, K2 and K4, and K3 never")
+
     # ---- 5. timings (device time from CUDA events; frame latency on the host clock)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape, what in ATTN_SHAPES.items():
@@ -1070,15 +1421,7 @@ def main() -> int:
         pre_ms = device_ms(lambda f: fused_precompute(mlp, f, 224, 224),
                            [(torch.randn(1, D, 28, 28, device=dev, generator=g),) for _ in range(WARMUP + N_TIMED)])
     hw_px = 224 * 224
-    # K2's bound. Bytes: its operands (hw at 28 patch rows, zsts, the weights and row tables) in, the two
-    # fp32 maps out. Operations per pixel, with K1 = 256 and K = 32: the K1 -> K product on the tensor cores
-    # (2 K K1); the H lerp of hw, two products and a sum per channel in bf16x2 (3 K1); in fp32 the bias and
-    # relu (2 K), the logit (2 K), the quadratic form over the upper triangle of the symmetric M (K (K + 1)),
-    # the z lerp (3 K), 2 x1 . (v - z) (3 K) and the rest of reco and the sigmoid (16)
-    K1, K = opss[0][0].w1t.shape[1], opss[0][0].w1t.shape[0]
-    k2_ops = {"bf16_tensor": 2 * K * K1 * hw_px, "bf16x2": 3 * K1 * hw_px, "fp32": (K * (K + 1) + 10 * K + 16) * hw_px}
-    k2_bytes = sum(x.numel() * x.element_size() for x in opss[0][0]) + 2 * hw_px * 4
-    b2 = bound(k2_bytes, k2_ops)
+    b2, k2_ops, k2_bytes = k2_bound(opss[0][0], hw_px)
     parts = ", ".join(f"{kind} {n / PEAK_FLOPS[kind] * 1e3:.6f} ms" for kind, n in k2_ops.items())
     print(f"[time] K2 pixelwise_score 224x224 from (1, 384, 28, 28): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
           f"(torch precompute before either: {pre_ms:.4f} ms); bound {b2['bound_ms']:.6f} ms ({b2['bound_by']}: "
@@ -1170,7 +1513,7 @@ def main() -> int:
         "fill_hulls": ("fill_hulls.cu", "wild_visual_navigation_tpu/ops/rasterize_pallas.py:52"),
     }
     kernels = [{"name": name, "route": "cuda", "source": f"wild_visual_navigation_tpu_torch/csrc/{src}",
-                "replaces": rep, "launches": launches[name], **results[name]}
+                "replaces": rep, "launches": launches[name], **results[name], "stego_launches": stego_launches[name]}
                for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -14,7 +14,7 @@ from wild_visual_navigation_tpu.ops.flash_attention import flash_attention as jf
 from wild_visual_navigation_tpu.ops.flash_attention import xla_attention as jxla
 from wild_visual_navigation_tpu_torch.feature_extractor.dino import DinoInterface as TDino
 from wild_visual_navigation_tpu_torch.models import vit as tvit
-from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention, xla_attention
+from wild_visual_navigation_tpu_torch.ops.flash_attention import bf16_atol, flash_attention, xla_attention
 from wild_visual_navigation_tpu_torch.utils.params import vit_state_from_jax
 
 
@@ -49,6 +49,24 @@ def test_plain_attention_bf16_matches_xla_attention(qkv):
     got = xla_attention(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)), 0.125)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2)  # bf16 output rounding
+
+
+@pytest.mark.parametrize("B,S", [(1, 785), (4, 785), (1, 3137)])
+def test_bf16_limit_fails_a_kernel_that_drops_the_last_kv_tile(B, S):
+    """At ViT-B/8's shapes (12 heads) the limit K1's bf16 body is held to
+    on the card fails a kernel that leaves out the last kv tile of 64 rows
+    (17 tokens at S = 785, one at 3137): the plain version on the tokens
+    before it stands in for that kernel, with a margin of 4."""
+    g = torch.Generator().manual_seed(S + B)
+    q, k, v = (torch.randn(B, 12, S, 64, generator=g).bfloat16() for _ in range(3))
+    keep = (S - 1) // 64 * 64
+
+    def per_head(n):  # one head at a time keeps the score matrix small
+        return torch.cat([xla_attention(q[:, h:h + 1], k[:, h:h + 1, :n], v[:, h:h + 1, :n], 0.125)
+                          for h in range(12)], 1).float()
+
+    ref = per_head(S)
+    assert float((per_head(keep) - ref).abs().max()) > 4 * bf16_atol(ref)
 
 
 def test_flash_attention_rejects_other_devices():

@@ -170,13 +170,11 @@ def test_static_helpers_match_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(feature_type="stego"), "item 20"),
     (dict(feature_type="torchvision"), "item 21"),
     (dict(feature_type="sift"), "item 23"),
     (dict(feature_type="histogram"), "item 23"),
-    (dict(segmentation_type="stego"), "item 20"),
     (dict(quant="int8_static"), "item 28"),
-], ids=["stego", "torchvision", "sift", "histogram", "stego-segments", "int8"])
+], ids=["torchvision", "sift", "histogram", "int8"])
 def test_unported_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
         tfe_mod.FeatureExtractor(device="cpu", input_size=SIZE, **kw)

@@ -394,6 +394,34 @@ def test_mission_carried_from_jax_continues_the_same():
     assert test.step == 20
 
 
+def test_sampling_seed_separate_from_head_seed():
+    """A JAX session whose head comes from PRNGKey(0) and whose batches come
+    from the global np.random seeded 7 after construction replays in the
+    port: the head carried over, sampling_seed 7, the port's own head seed
+    left at another value. Both draw the same batches and the same losses."""
+    jest = JEstimator(**ESTIMATOR_ARGS, seed=0)
+    test = TraversabilityEstimator(**ESTIMATOR_ARGS, seed=SEED, sampling_seed=7, device="cpu")
+    test.adopt_train_state(mlp_state_from_jax(jax.tree_util.tree_map(np.asarray, jest.params)), None,
+                           confidence_state_from_jax(jax.tree_util.tree_map(np.asarray, jest.confidence_state)), 0)
+    _feed(jest, True, MISSION_XS, STATES)
+    _feed(test, False, MISSION_XS, STATES)
+    t_idx, j_idx = [], []
+    _record_samples(test, t_idx)
+    _record_samples(jest, j_idx)
+    np.random.seed(7)
+    j_losses = _train(jest, 30)
+    t_losses = _train(test, 30)
+    assert t_idx == j_idx and len(t_idx) == 30
+    _close(t_losses, j_losses)
+    _assert_same_training_state(test, jest)
+    # without sampling_seed the batches come from the head's seed, and differ
+    other, o_idx = TraversabilityEstimator(**ESTIMATOR_ARGS, seed=SEED, device="cpu"), []
+    _feed(other, False, MISSION_XS, STATES)
+    _record_samples(other, o_idx)
+    _train(other, 5)
+    assert o_idx != j_idx[:5]
+
+
 # -------------------------------------------------- the port on its own
 
 

@@ -242,3 +242,37 @@ def test_quick_start_runs_on_cpu(tmp_path):
                       "--network_input_image_width", "64", "--slic_num_components", "16",
                       "--output_folder", str(tmp_path)])
     assert len(list(tmp_path.glob("*_trav.png"))) == 1
+
+
+def test_quick_start_runs_the_jackal_stego_profile_on_cpu(tmp_path, capsys):
+    """The Jackal robot's profile (stego features and segments) through the
+    YAML loader, at 32 px: the STEGO frame end to end."""
+    from wild_visual_navigation_tpu_torch import quick_start
+
+    argv = ["--config", str(ROOT / "configs/default.yaml"), "--config", str(ROOT / "configs/robots/jackal.yaml"),
+            "--device", "cpu", "--max_frames", "1", "--network_input_image_height", "32",
+            "--network_input_image_width", "32", "--output_folder", str(tmp_path)]
+    args = quick_start.parse_args(argv)
+    assert (args.feature_type, args.segmentation_type, args.network_input_image_height) == ("stego", "stego", 32)
+    quick_start.main(argv)
+    assert len(list(tmp_path.glob("*_trav.png"))) == 1
+
+
+def test_node_profiles_load_as_in_jax(tmp_path):
+    """utils/loading.py (a copy of the JAX package's) builds the same node
+    parameters from the same YAML stack, and refuses unknown keys."""
+    from wild_visual_navigation_tpu.utils.loading import load_node_params as jload
+    from wild_visual_navigation_tpu_torch.utils.loading import load_node_params as tload
+
+    paths = [str(ROOT / "configs/default.yaml"), str(ROOT / "configs/robots/jackal.yaml")]
+    fe, ln = tload(*paths)
+    for t, j in zip((fe, ln), jload(*paths)):
+        t, j = dataclasses.asdict(t), dataclasses.asdict(j)
+        assert t.pop("device") == "cuda" and j.pop("device") == "tpu"
+        assert {k: (v.name if hasattr(v, "name") else v) for k, v in t.items()} == \
+               {k: (v.name if hasattr(v, "name") else v) for k, v in j.items()}
+    assert (fe.feature_type, fe.segmentation_type, ln.robot_length) == ("stego", "stego", 0.5)
+    bad = tmp_path / "bad.yaml"
+    bad.write_text("feature_type: stego\nno_such_param: 1\n")
+    with pytest.raises(KeyError, match="unknown node param"):
+        tload(str(bad))

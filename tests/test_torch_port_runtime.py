@@ -453,15 +453,13 @@ def _runtime_kw(build_fe, **fe_kw):
     (lambda: WVNRuntime(**_runtime_kw(False), mesh=object()), "item 27"),
     (lambda: WVNRuntime(**_runtime_kw(False), gridmap_size=64), "item 24"),
     (lambda: WVNRuntime(**_runtime_kw(False), anomaly_detection=True), "item 22"),
-    (lambda: WVNRuntime(**_runtime_kw(True, seg="stego", feature_type="stego")), "item 20"),
     (lambda: WVNRuntime(**_runtime_kw(True, feature_type="torchvision")), "item 21"),
     (lambda: WVNRuntime(**_runtime_kw(True, dino_quant="int8")), "item 28"),
     (lambda: WVNRuntime(**_runtime_kw(False)).attach_distributed_trainer(), "item 27"),
     (lambda: WVNRuntime(**_runtime_kw(False)).get_carrot(), "item 24"),
     (lambda: WVNRuntime(**_runtime_kw(False, dino_quant="int8")).calibrate_backbone([]), "item 28"),
     (lambda: WVNRuntime(**_runtime_kw(False)).export_supervision_markers(), "Slice 5"),
-], ids=["mesh", "gridmap", "anomaly", "stego", "torchvision", "int8", "distributed", "carrot", "calibrate",
-        "markers"])
+], ids=["mesh", "gridmap", "anomaly", "torchvision", "int8", "distributed", "carrot", "calibrate", "markers"])
 def test_unported_options_raise_naming_their_item(build, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
         build()

@@ -28,9 +28,8 @@ class DinoInterface:
         self.device = torch.device(device)
         generator = torch.Generator().manual_seed(seed)
         self.vit: VisionTransformer = make_vit(backbone, backbone_type, patch_size, attention_impl=attention_impl,
-                                               dtype=dtype, device=self.device, generator=generator)
-        if params is not None:
-            self.vit.load_state_dict(params)
+                                               dtype=dtype, device=self.device, generator=generator,
+                                               state_dict=params)
         self.vit.eval().requires_grad_(False)
 
     @property

@@ -1,15 +1,17 @@
 """FeatureExtractor facade: image -> (edges, features, segments, centers).
 
 Port of wild_visual_navigation_tpu/feature_extractor/feature_extractor.py
-for the DINO / DINOv2 backbones and the slic, grid, none (pixel-wise) and
-random segmentations. Every output keeps the JAX package's fixed shapes:
-`num_segments` is a static capacity, the per-segment feature matrix is
-(S, D) with a validity mask.
+for the DINO / DINOv2 and STEGO backbones and the slic, grid, none
+(pixel-wise), random and stego segmentations. Every output keeps the JAX
+package's fixed shapes: `num_segments` is a static capacity, the
+per-segment feature matrix is (S, D) with a validity mask.
 
 SLIC on a CUDA image runs `ops/slic.py::slic`, which hands it to
 `slic_batch` and so to kernel K3; the plain whole-image loop serves CPU
-images only. The other backbones and the stego segmentation are not
-ported yet and raise `NotImplementedError` naming their ROADMAP.md item.
+images only. The stego segmentation is the STEGO interface's per-image
+k-means clusters; in stego × stego mode the features computed while
+segmenting are reused. The other backbones are not ported yet and raise
+`NotImplementedError` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -22,11 +24,11 @@ import torch
 from ..ops import segment_ops
 from ..ops import slic as slic_ops
 from .dino import DinoInterface
+from .stego import StegoInterface
 
 # Feature types of the JAX package that this port does not have yet, with
 # the ROADMAP.md item that brings them.
 _NOT_PORTED_FEATURES = {
-    "stego": "Queue 1, item 20",
     "torchvision": "Queue 1, item 21",
     "sift": "Queue 1, item 23",
     "histogram": "Queue 1, item 23",
@@ -63,9 +65,8 @@ class FeatureExtractor:
         if feature_type in _NOT_PORTED_FEATURES:
             raise NotImplementedError(f"feature_type [{feature_type}] is not ported to torch yet "
                                       f"(ROADMAP.md {_NOT_PORTED_FEATURES[feature_type]})")
-        if segmentation_type == "stego":
-            raise NotImplementedError("segmentation_type [stego] is not ported to torch yet (ROADMAP.md Queue 1, "
-                                      "item 20)")
+        if segmentation_type == "stego" and feature_type != "stego":
+            raise ValueError(f"segmentation_type [stego] needs feature_type [stego] (got [{feature_type}])")
         if kwargs.get("quant") is not None:
             raise NotImplementedError(f"backbone quantization [{kwargs['quant']}] is not ported to torch "
                                       "(ROADMAP.md Queue 1, item 28)")
@@ -75,7 +76,21 @@ class FeatureExtractor:
         self._seed = seed
         self.device = torch.device(device)
 
-        if "dino" in feature_type:
+        if feature_type == "stego":
+            self._extractor = StegoInterface(
+                seed=seed,
+                input_size=input_size,
+                n_image_clusters=kwargs.get("n_image_clusters", 20),
+                run_clustering=kwargs.get("run_clustering", True),
+                run_crf=kwargs.get("run_crf", False),
+                backbone_params=kwargs.get("backbone_params"),
+                head_params=kwargs.get("head_params"),
+                attention_impl=kwargs.get("attention_impl") or "flash",
+                dtype=kwargs.get("dtype", torch.bfloat16),
+                device=self.device,
+            )
+            self._feature_dim = 90
+        elif "dino" in feature_type:
             self._extractor = DinoInterface(
                 backbone=kwargs.get("backbone", feature_type),
                 input_size=input_size,
@@ -121,7 +136,8 @@ class FeatureExtractor:
         """Static per-image segment capacity for the configured mode."""
         return static_num_segments(self._segmentation_type, height, width, cell_size=self._cell_size,
                                    slic_num_components=self._slic_num_components,
-                                   n_random_pixels=self._n_random_pixels)
+                                   n_random_pixels=self._n_random_pixels,
+                                   n_image_clusters=getattr(self._extractor, "n_image_clusters", 20))
 
     # ------------------------------------------------------------- steps
     def compute_segments(self, img: torch.Tensor, generator: Optional[torch.Generator] = None):
@@ -147,6 +163,9 @@ class FeatureExtractor:
             if generator is None:
                 generator = torch.Generator().manual_seed(self._seed)
             seg = segment_ops.segment_random(generator, H, W, self._n_random_pixels, device=dev)
+        elif st == "stego":
+            self._extractor.inference(img)
+            seg = self._extractor.cluster_segments[0]
         else:
             raise ValueError(f"segmentation_type [{st}] not supported")
 
@@ -159,6 +178,12 @@ class FeatureExtractor:
         """(1, 3, H, W) -> (D, H, W) dense features (None for "none")."""
         if self._extractor is None:
             return None
+        if self._feature_type == "stego":
+            # stego x stego reuses the features computed while segmenting
+            # (the reference's _stego_features_already_computed flag)
+            if self._segmentation_type != "stego" or self._extractor.features is None:
+                self._extractor.inference(img)
+            return self._extractor.features[0]
         return self._extractor.inference(img)[0]
 
     def sparsify_features(self, dense_features: torch.Tensor, seg: torch.Tensor, num_segments: int):

@@ -179,19 +179,27 @@ class PatchEmbed(nn.Module):
 
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, attention_impl: str = "flash", dtype: torch.dtype = torch.bfloat16,
-                 device=None, generator: torch.Generator | None = None):
+                 device=None, generator: torch.Generator | None = None, state_dict: dict | None = None):
+        """Weights from `state_dict` where one is given (the layers are
+        then built on the meta device, so no initialiser runs), else the
+        seeded draw of reset_parameters."""
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         D = cfg.embed_dim
-        self.patch_embed = PatchEmbed(cfg, dtype, device)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, D, device=device))
-        self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid_size**2, D, device=device))
+        build = device if state_dict is None else "meta"
+        self.patch_embed = PatchEmbed(cfg, dtype, build)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, D, device=build))
+        self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid_size**2, D, device=build))
         if cfg.num_register_tokens:
-            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, D, device=device))
-        self.blocks = nn.ModuleList(Block(cfg, attention_impl, dtype, device) for _ in range(cfg.depth))
-        self.norm = nn.LayerNorm(D, eps=cfg.ln_eps, device=device)
-        self.reset_parameters(generator)
+            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, D, device=build))
+        self.blocks = nn.ModuleList(Block(cfg, attention_impl, dtype, build) for _ in range(cfg.depth))
+        self.norm = nn.LayerNorm(D, eps=cfg.ln_eps, device=build)
+        if state_dict is None:
+            self.reset_parameters(generator)
+        else:
+            self.to_empty(device=device if device is not None else "cpu")
+            self.load_state_dict(state_dict)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -242,10 +250,10 @@ def dense_features(vit: VisionTransformer, img: torch.Tensor) -> torch.Tensor:
 
 def make_vit(backbone: str = "dinov2", backbone_type: str = "vit_small", patch_size: int = 14,
              attention_impl: str = "flash", dtype: torch.dtype = torch.bfloat16, device=None,
-             generator: torch.Generator | None = None) -> VisionTransformer:
+             generator: torch.Generator | None = None, state_dict: dict | None = None) -> VisionTransformer:
     """Instantiate by the reference's (backbone, backbone_type, patch_size)."""
     key = f"{backbone}_vit_{backbone_type.replace('vit_', '')}_{patch_size}"
     if key not in VIT_CONFIGS:
         raise ValueError(f"Unknown ViT config {key}; have {sorted(VIT_CONFIGS)}")
     return VisionTransformer(VIT_CONFIGS[key], attention_impl=attention_impl, dtype=dtype, device=device,
-                             generator=generator)
+                             generator=generator, state_dict=state_dict)

@@ -32,6 +32,16 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: f
     return out.to(q.dtype)
 
 
+def bf16_atol(ref: torch.Tensor) -> float:
+    """The absolute error that K1's bf16 output is held to against
+    `xla_attention` on the same inputs: 2**-6 of the output's largest
+    |value|, 2 to 4 bf16 units in the last place of the largest outputs.
+    Both sides round p and the output to bf16, so they may differ there by
+    one or two units. Leaving out the last kv tile moves some output by 7
+    to 40 times this at the ViT shapes (tests/test_torch_port_attention_vit.py)."""
+    return float(ref.float().abs().max()) * 2.0**-6
+
+
 def _outer_strides(name: str, t: torch.Tensor) -> list[int]:
     """The (B, H, S) strides of t in elements, checked for the kernel: a
     contiguous last axis and, as TMA needs, 16-byte aligned base and

@@ -9,6 +9,8 @@ reference's one-hot ignores them.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -125,6 +127,49 @@ def adjacency_list(seg: torch.Tensor, num_segments: int, max_edges: int = 512):
     le = torch.where(valid, keys % div, 0)
     ri = torch.where(valid, keys // div, 0)
     return torch.stack([le, ri]).to(torch.int32), valid
+
+
+@functools.lru_cache(maxsize=32)
+def _upsampled_cell_sums(out_h: int, out_w: int, hp: int, wp: int, device) -> torch.Tensor:
+    """(hp·wp, 3) per patch cell: the pixel sums of x and y and the pixel
+    count of the cell's block under the integer nearest upsample
+    `r = (y · hp) // out_h`. Built once per shape and device."""
+
+    def block_sums(n_out, n_in):
+        idx = (np.arange(n_out) * n_in) // n_out  # pixel -> patch row
+        w = np.zeros(n_in, np.float64)
+        s = np.zeros(n_in, np.float64)
+        np.add.at(w, idx, 1.0)
+        np.add.at(s, idx, np.arange(n_out, dtype=np.float64))
+        return w.astype(np.float32), s.astype(np.float32)
+
+    w_y, s_y = block_sums(out_h, hp)
+    w_x, s_x = block_sums(out_w, wp)
+    cnt = (w_y[:, None] * w_x[None, :]).reshape(-1)
+    sx = (w_y[:, None] * s_x[None, :]).reshape(-1)
+    sy = (s_y[:, None] * w_x[None, :]).reshape(-1)
+    return torch.as_tensor(np.stack([sx, sy, cnt], axis=-1), device=device)
+
+
+def upsampled_adjacency_and_centers(seg_p: torch.Tensor, num_segments: int, out_h: int, out_w: int,
+                                    max_edges: int = 512):
+    """adjacency_list + segment_centers of the nearest-upsampled label map
+    (the integer rule `r = (y · hp) // out_h`), computed at patch resolution.
+
+    The rule sends each patch cell to a contiguous pixel block, so two
+    labels touch at pixel resolution exactly when they touch at patch
+    resolution, and a label's pixel centroid is its cells' block-weighted
+    centroid. seg_p (hp, wp) -> (edges, edge_valid, centers, center_valid)."""
+    hp, wp = seg_p.shape
+    if out_h < hp or out_w < wp:
+        # downsampling merges cells: patch-resolution adjacency would report pairs the pixel map never has
+        raise ValueError(f"upsampled_adjacency_and_centers requires out >= patch grid "
+                         f"(got {out_h}x{out_w} from {hp}x{wp})")
+    edges, edge_valid = adjacency_list(seg_p, num_segments, max_edges=max_edges)
+    stacked = _upsampled_cell_sums(out_h, out_w, hp, wp, seg_p.device)
+    agg = _one_hot(seg_p.reshape(-1), num_segments).T @ stacked
+    counts = agg[:, 2]
+    return edges, edge_valid, agg[:, :2] / counts.clamp_min(1.0)[:, None], counts > 0
 
 
 def segment_grid(height: int, width: int, cell_size: int = 32, device=None) -> torch.Tensor:

@@ -1,16 +1,23 @@
 """Offline inference CLI of the torch port (counterpart of quick_start.py).
 
-Runs the per-frame path that the runtime serves
-(runtime/fused.py::build_fused_frame_fn: DINO backbone, SLIC or grid
-segments, per-pixel traversability head, confidence) over a folder of
-images — or, without --image_folder, over the frames of
+Runs the per-frame path that the runtime serves over a folder of images —
+or, without --image_folder, over the frames of
 assets/sequences/demo_mission.npz — and writes side-by-side
-(input | traversability | confidence) PNGs.
+(input | traversability | confidence) PNGs. Two paths:
+runtime/fused.py::build_fused_frame_fn (DINO backbone, SLIC or grid
+segments) and ::build_fused_stego_frame_fn (stego features and segments:
+ViT-B/8, the STEGO head, k-means clusters); both score per pixel or per
+segment. `--config` applies YAML node-parameter profiles, e.g. the Jackal
+robot's STEGO path:
+
+    python -m wild_visual_navigation_tpu_torch.quick_start \
+        --config configs/default.yaml --config configs/robots/jackal.yaml
 
 The head defaults to the shipped replay-trained one, converted for the
 port (assets/checkpoints/replay_demo_head_torch.npz, written by
-tools/convert_head_to_torch.py). The backbone has seeded random
-weights: pretrained DINO weights are not in the repository.
+tools/convert_head_to_torch.py) for dino/vit_small/8; other feature
+types get a seeded random head. The backbone has seeded random weights:
+pretrained DINO and STEGO weights are not in the repository.
 
 Example:
     python -m wild_visual_navigation_tpu_torch.quick_start --output_folder results/torch_demo
@@ -53,7 +60,20 @@ def parse_args(argv=None):
     p.add_argument("--no-prediction_per_pixel", dest="prediction_per_pixel", action="store_false")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--max_frames", type=int, default=None)
-    return p.parse_args(argv)
+    p.add_argument("--config", action="append", default=[],
+                   help="YAML node-parameter profile, applied in order (repeatable); its feature and segmentation "
+                        "types, input size, backbone, SLIC segments and per-pixel prediction become the defaults, "
+                        "which flags given on the command line override")
+    args = p.parse_args(argv)
+    if args.config:
+        from .utils.loading import load_node_params
+
+        fe, _ = load_node_params(*args.config)
+        p.set_defaults(**{name: getattr(fe, name) for name in (
+            "feature_type", "segmentation_type", "network_input_image_height", "network_input_image_width",
+            "dino_patch_size", "dino_backbone", "slic_num_components", "prediction_per_pixel")})
+        args = p.parse_args(argv)
+    return args
 
 
 def _frames(args):
@@ -79,24 +99,30 @@ def _overlay(base: np.ndarray, value: np.ndarray, alpha: float = 0.6) -> np.ndar
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.segmentation_type not in ("slic", "grid") or args.feature_type not in ("dino", "dinov2"):
-        raise SystemExit("the torch port serves dino/dinov2 features with slic or grid segments "
-                         "(other modes: ROADMAP.md Queue 1, Slice 4)")
+    stego = (args.feature_type, args.segmentation_type) == ("stego", "stego")
+    if not stego and (args.segmentation_type not in ("slic", "grid") or args.feature_type not in ("dino", "dinov2")):
+        raise SystemExit("the torch port serves dino/dinov2 features with slic or grid segments, and stego features "
+                         "with stego segments (other modes: ROADMAP.md Queue 1, Slice 4)")
     import torch
     from PIL import Image
 
     from .feature_extractor.dino import DinoInterface
+    from .feature_extractor.stego import StegoInterface
     from .models.registry import get_model
     from .ops.resize import resize_image
-    from .runtime.fused import build_fused_frame_fn
+    from .runtime.fused import build_fused_frame_fn, build_fused_stego_frame_fn
     from .utils.confidence_generator import ConfidenceConfig, confidence_init
     from .utils.params import confidence_state_from_jax, load_head_npz, mlp_state_from_jax
 
     H, W = args.network_input_image_height, args.network_input_image_width
     device = torch.device(args.device)
-    dino = DinoInterface(backbone=args.feature_type, input_size=H, backbone_type=args.dino_backbone,
-                         patch_size=args.dino_patch_size, device=device, seed=0)
-    D = dino.feature_dim
+    if stego:
+        backbone = StegoInterface(input_size=H, device=device, seed=0)
+        D = 90
+    else:
+        backbone = DinoInterface(backbone=args.feature_type, input_size=H, backbone_type=args.dino_backbone,
+                                 patch_size=args.dino_patch_size, device=device, seed=0)
+        D = backbone.feature_dim
     mlp = get_model({"name": "SimpleMLP",
                      "simple_mlp_cfg": {"input_size": D, "hidden_sizes": [256, 32, 1], "reconstruction": True}},
                     device=device, generator=torch.Generator().manual_seed(1))
@@ -111,11 +137,16 @@ def main(argv=None):
         cg_state = confidence_state_from_jax(cg, device)
         print(f"loaded head {args.ckpt} (step {step})")
     mlp.eval().requires_grad_(False)
-    frame = build_fused_frame_fn(dino.vit, mlp, ConfidenceConfig(std_factor=0.5), H,
-                                 segmentation_type=args.segmentation_type,
-                                 num_segments=args.slic_num_components,
-                                 prediction_per_pixel=args.prediction_per_pixel,
-                                 input_width=None if H == W else W)
+    if stego:
+        frame = build_fused_stego_frame_fn(backbone, mlp, ConfidenceConfig(std_factor=0.5), H,
+                                           prediction_per_pixel=args.prediction_per_pixel,
+                                           input_width=None if H == W else W)
+    else:
+        frame = build_fused_frame_fn(backbone.vit, mlp, ConfidenceConfig(std_factor=0.5), H,
+                                     segmentation_type=args.segmentation_type,
+                                     num_segments=args.slic_num_components,
+                                     prediction_per_pixel=args.prediction_per_pixel,
+                                     input_width=None if H == W else W)
     os.makedirs(args.output_folder, exist_ok=True)
     frames = _frames(args)[: args.max_frames]
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))

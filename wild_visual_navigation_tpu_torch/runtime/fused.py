@@ -1,10 +1,15 @@
 """Per-frame inference: segmentation + backbone + pooling + head.
 
-Port of wild_visual_navigation_tpu/runtime/fused.py (its DINO frame function):
+Port of wild_visual_navigation_tpu/runtime/fused.py, its DINO and STEGO
+frame functions:
 
     image -> resize / normalise -> ViT dense features (K1 in every block)
     -> SLIC (K3) or grid segmentation -> per-segment pooling, adjacency
     and centres -> per-pixel MLP traversability + confidence (K2)
+
+    image -> resize / normalise -> ViT-B/8 (K1) -> STEGO code head ->
+    per-image cosine k-means -> code pooling, adjacency and centres at
+    patch resolution -> per-pixel (K2) or per-segment scoring
 
 The ViT and the head are nn.Modules that carry their weights, so the
 returned `frame(cg_state, img)` takes only what changes between frames.
@@ -20,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.registry import apply_model
+from ..models.stego_head import cosine_kmeans, kmeans_init_indices
 from ..models.vit import dense_features
 from ..ops import segment_ops
 from ..ops.pixelwise import pixelwise_map_rows_chunked, pixelwise_score
@@ -143,6 +149,94 @@ def build_fused_frame_fn(
         x = resize_image(imgs, H, W)
         feat = dense_features(vit, imagenet_normalize(x))  # (B, D, Hp, Wp)
         return tail(cg_state, feat, _segments(x), head)
+
+    def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
+        return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))
+
+    frame.frames_batch = frames_batch
+    frame.tail = tail
+    return frame
+
+
+def build_fused_stego_frame_fn(
+    stego,
+    mlp,
+    cg_cfg: ConfidenceConfig,
+    input_size: int,
+    max_edges: int = 1024,
+    prediction_per_pixel: bool = True,
+    input_width: int | None = None,
+    init_idx: torch.Tensor | None = None,
+):
+    """The STEGO frame: returns frame(cg_state, img, head=None) ->
+    FrameResult, with frame.frames_batch(cg_state, imgs, head=None) (the
+    backbone and the code head once on the batch, then the tail) and
+    frame.tail(cg_state, codes, head=None) for (B, N, 90) codes.
+
+    `stego` is a feature_extractor/stego.py::StegoInterface. Segments are
+    the per-image k-means clusters (S = stego.n_image_clusters), features
+    the 90-d code pooled per cluster at patch resolution. The JAX package
+    seeds k-means with the same key on every frame; the port draws the
+    initial indices once, here, from a torch.Generator seeded 0 (or takes
+    `init_idx`, (S,)), and every image of every frame starts from them. Rectangular
+    configs must be patch-aligned."""
+    H = input_size
+    W = input_width or input_size
+    ps = stego.vit.cfg.patch_size
+    if W != H and (H % ps or W % ps):
+        raise ValueError(f"rectangular fused stego config must be patch-aligned: {H}x{W} with patch {ps}")
+    S = stego.n_image_clusters
+    hp, wp = H // ps, W // ps
+    if init_idx is None:
+        init_idx = kmeans_init_indices(torch.Generator().manual_seed(0), hp * wp, S)
+    default_mlp = mlp
+    per_device: dict = {}
+
+    def constants(device):
+        """The initial indices and the integer nearest-upsample maps on `device`."""
+        if device not in per_device:
+            per_device[device] = (init_idx.to(device), (torch.arange(H, device=device) * hp) // H,
+                                  (torch.arange(W, device=device) * wp) // W)
+        return per_device[device]
+
+    @torch.no_grad()
+    def tail(cg_state: ConfidenceState, codes: torch.Tensor, head=None) -> FrameResult:
+        """codes (B, N, 90) -> FrameResult with a leading batch axis."""
+        mlp = default_mlp if head is None else head
+        B = codes.shape[0]
+        idx, iy, ix = constants(codes.device)
+        labels, _ = cosine_kmeans(codes, idx)
+        seg_p = labels.reshape(B, hp, wp)
+        # the integer rule (y · hp) // H, the map upsampled_adjacency_and_centers assumes
+        segs = seg_p[:, iy][:, :, ix]
+        code_hw = codes.reshape(B, hp, wp, -1).permute(0, 3, 1, 2)
+        trav_b = conf_b = None
+        if prediction_per_pixel and pixelwise_supports(mlp):
+            trav_b, conf_b = pixelwise_score(mlp, code_hw, H, W, cg_cfg, cg_state)  # one K2 launch
+        outs = []
+        for b in range(B):
+            pooled, counts = segment_ops.segment_mean_pool(code_hw[b], seg_p[b], S)
+            edges, edge_valid, centers, _ = segment_ops.upsampled_adjacency_and_centers(seg_p[b], S, H, W,
+                                                                                         max_edges=max_edges)
+            if trav_b is not None:
+                trav, conf = trav_b[b], conf_b[b]
+            elif prediction_per_pixel:
+                trav, conf = pixelwise_map_rows_chunked(lambda rows: _score_rows(mlp, cg_cfg, cg_state, rows),
+                                                        code_hw[b : b + 1], H, W)
+            else:
+                t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled)
+                sid = segs[b].long().clamp(0, S - 1)
+                trav, conf = t_s[sid], c_s[sid]
+            outs.append(FrameResult(trav, conf, pooled, counts > 0, segs[b], edges, edge_valid, centers))
+        return FrameResult(*(torch.stack(field) for field in zip(*outs)))
+
+    @torch.no_grad()
+    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
+        """(B, 3, H0, W0) -> FrameResult with a leading batch axis."""
+        if imgs.dtype == torch.uint8:
+            imgs = imgs.float() / 255.0
+        out = stego.vit(imagenet_normalize(resize_image(imgs, H, W)))
+        return tail(cg_state, stego.head(out["patch_tokens"])["code"], head)
 
     def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
         return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))

@@ -4,9 +4,10 @@ Port of wild_visual_navigation_tpu/runtime/runtime.py. One process runs
 the reference's two ROS nodes side by side:
 
   * the inference path: camera frame -> resize -> DINO ViT (K1) and SLIC
-    (K3) or grid segmentation -> traversability head scored at every pixel
-    (K2) -> traversability and confidence maps, plus the frame's features
-    into the mission buffer;
+    (K3) or grid segmentation, or ViT-B/8 (K1), the STEGO head and k-means
+    clusters -> traversability head scored at every pixel (K2) or per
+    segment -> traversability and confidence maps, plus the frame's
+    features into the mission buffer;
   * the learning path: supervision reprojection (K4) and the train step
     inside the TraversabilityEstimator, on the caller's thread or on the
     learning thread.
@@ -28,7 +29,7 @@ the frame runs under `no_grad` while the learning thread runs autograd.
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
 item: `mesh` and `attach_distributed_trainer` (27), the grid map and
 `get_carrot` (24), int8 backbones and `calibrate_backbone` with them (28),
-the stego and torchvision branches (20, 21), anomaly mode (22) and
+the torchvision branch (21), anomaly mode (22) and
 `export_supervision_markers` (Slice 5, visu/).
 """
 
@@ -179,9 +180,8 @@ class WVNRuntime:
         fp = self.fe_params
         self._H = fp.network_input_image_height
         self._W = fp.network_input_image_width
-        if fp.feature_type in ("stego", "torchvision") and build_feature_extractor:
-            item = "Queue 1, item 20" if fp.feature_type == "stego" else "Queue 1, item 21"
-            raise _not_ported(f"the {fp.feature_type} branch", item)
+        if fp.feature_type == "torchvision" and build_feature_extractor:
+            raise _not_ported("the torchvision branch", "Queue 1, item 21")
 
         # --- feature extraction (the inference process's half). Without it
         # (the learning node's role) shapes come from the static helpers.
@@ -273,15 +273,17 @@ class WVNRuntime:
         self.status = StatusMonitor(printer=None)
 
         # Fused frame path (runtime/fused.py): dino backbones with slic or
-        # grid segmentation; 'none' (pixel-wise) goes composed.
+        # grid segmentation, and stego x stego; 'none' (pixel-wise) goes composed.
         self._fused_frame = None
+        dino_fusable = "dino" in fp.feature_type and fp.segmentation_type in ("slic", "grid")
+        stego_fusable = fp.feature_type == "stego" and fp.segmentation_type == "stego"
         if use_fused and self._W != self._H:
-            ps = self.feature_extractor._extractor.vit.cfg.patch_size if "dino" in fp.feature_type else 1
+            ps = self.feature_extractor._extractor.vit.cfg.patch_size if dino_fusable or stego_fusable else 1
             if self._H % ps or self._W % ps:
                 warnings.warn(f"fused {fp.feature_type} path requires a square or patch-aligned input "
                               f"({self._H}x{self._W} configured, patch {ps}) — using the composed path", stacklevel=2)
                 use_fused = False
-        if use_fused and "dino" in fp.feature_type and fp.segmentation_type in ("slic", "grid"):
+        if use_fused and dino_fusable:
             from .fused import build_fused_frame_fn
 
             fe = self.feature_extractor
@@ -297,6 +299,18 @@ class WVNRuntime:
                 max_edges=fe._max_edges,
                 prediction_per_pixel=fp.prediction_per_pixel,
                 score_at_patch_res=score_at_patch_res,
+                input_width=self._W,
+            )
+        elif use_fused and stego_fusable:
+            from .fused import build_fused_stego_frame_fn
+
+            self._fused_frame = build_fused_stego_frame_fn(
+                self.feature_extractor._extractor,
+                self.estimator.model,
+                self.estimator._cg_cfg,
+                input_size=self._H,
+                max_edges=self.feature_extractor._max_edges,
+                prediction_per_pixel=fp.prediction_per_pixel,
                 input_width=self._W,
             )
 
@@ -465,13 +479,14 @@ class WVNRuntime:
     def image_batch_callback(self, imgs, stamps, cameras, Ks: np.ndarray, orig_h: int, orig_w: int,
                              poses_base_in_world: np.ndarray, poses_cam_in_base: np.ndarray):
         """Multi-camera batched path: all B cameras' frames through one
-        `frames_batch` (the backbone, SLIC and K2 each once on the batch),
+        `frames_batch` (the backbone, SLIC or k-means, and K2 each once on the batch),
         then the B-row buffer insert. No rate gate or scheduler: the caller
         batches synchronized frames. Returns one InferenceResult per camera.
 
         imgs: (B, 3, H0, W0); Ks: (B, 3, 3); poses: (B, 4, 4)."""
         if self._fused_frame is None:
-            raise ValueError("image_batch_callback requires the fused path (use_fused=True, dino backbone)")
+            raise ValueError("image_batch_callback requires the fused path (use_fused=True; dino with slic or "
+                             "grid, or stego x stego)")
         self.events.record("image_batch_callback_received")
         for i, cam in enumerate(cameras):
             self.status.tick(f"camera:{cam}")

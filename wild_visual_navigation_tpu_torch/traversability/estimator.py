@@ -88,6 +88,7 @@ class TraversabilityEstimator:
         max_edges: int = 1024,
         reprojection_fanout: int = 32,
         seed: int = 42,
+        sampling_seed: Optional[int] = None,
         vis_node_index: int = 10,
         log_confidence_folder: Optional[str] = None,
         log_every: int = 20,
@@ -97,10 +98,13 @@ class TraversabilityEstimator:
         device="cuda",
     ):
         """The JAX estimator's arguments, less `mesh`, plus `device` (the
-        card unless the caller asks for the CPU). `seed` draws the head's
-        weights and seeds the estimator's own `np.random.RandomState` for
-        batch sampling, which draws what the JAX package's global
-        `np.random.choice` draws after `np.random.seed(seed)`.
+        card unless the caller asks for the CPU), and `sampling_seed`. `seed`
+        draws the head's weights. `sampling_seed` (`seed` when None) seeds
+        the estimator's own `np.random.RandomState` for batch sampling,
+        which draws what the JAX package's global `np.random.choice` draws
+        after `np.random.seed(sampling_seed)`: a JAX run whose head key and
+        global seed differ replays with the head carried over and its
+        global seed here.
 
         graph_max_elements_factor: the ONLINE mission graph keeps at most
         `factor * buffer_capacity` host nodes (0 = unbounded, the
@@ -145,7 +149,7 @@ class TraversabilityEstimator:
         self._cg_state = confidence_init(self._device)
         self._step = 0
         self._loss = float("inf")
-        self._rng = np.random.RandomState(seed)
+        self._rng = np.random.RandomState(seed if sampling_seed is None else sampling_seed)
 
         # one re-entrant lock serialises every mission-buffer read and write
         self._lock = TrackedRLock()

@@ -12,6 +12,9 @@ Layout changes:
   * the qkv columns keep flax's (3, heads, head_dim) order, which
     models/vit.py::Attention splits the same way.
 
+`stego_head_state_from_jax` converts the STEGO head (models/stego_head.py);
+its ViT-B/8 backbone goes through `vit_state_from_jax` like any ViT.
+
 `train_state_from_jax` carries a JAX estimator's whole optimisation
 state (params, optax Adam moments, confidence state, step) into the
 port's estimator. A whole JAX runtime moves into a port runtime in two
@@ -72,6 +75,16 @@ def vit_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
             if f"{ls}_gamma" in blk:
                 sd[f"{pre}.{ls}.gamma"] = _t(blk[f"{ls}_gamma"])
         i += 1
+    return sd
+
+
+def stego_head_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax StegoHead params -> models/stego_head.py state_dict."""
+    p = _inner(params)
+    sd: dict[str, torch.Tensor] = {}
+    for name in ("cluster1", "cluster2_fc1", "cluster2_fc2", "linear_probe"):
+        _dense(sd, name, p[name])
+    sd["cluster_probe"] = _t(p["cluster_probe"])
     return sd
 
 
