@@ -34,7 +34,16 @@ PyTorch version at the main path's shapes, and drives these paths:
     the CPU, and WVNRuntime in the Jackal robot's profile
     (configs/robots/jackal.yaml: stego x stego at 224) replaying the same
     mission (K1 12, K2 1, K3 0 per accepted frame, K4 1 per flush), its
-    first 20 frames also on the CPU, and the frame's latency at 224 and 448.
+    first 20 frames also on the CPU, and the frame's latency at 224 and 448;
+  * dense SIFT, the colour histogram and pyramidal LK on the card against
+    the CPU, and the facade's sift and histogram modes with SLIC (K3);
+  * the anomaly frame (LinearRnvp at the experiment's defaults, scored per
+    pixel in row bands) and the graph frame (SimpleGCN [256, 128, 1], per
+    segment over the SLIC adjacency) at 224 (K1 12, K3 11, K2 0 per frame)
+    against the CPU tail on the card's features; WVNRuntime in anomaly mode
+    replaying the mission (K4 1 per flush), its first 20 frames also on the
+    CPU; and the demo golden replay (sift on a 64-px grid) on the card held
+    to assets/goldens/demo_mission_replay.npz's own limits.
 
 It checks each path's outputs and that each went through its kernels, and
 times the kernels, the frame, a supervision flush and a train step. It
@@ -52,8 +61,12 @@ The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels with their launches in the runtime's replay of the mission
 (counts set to 0 just before it, read just after), errors, times and
 bounds (K4's of the fill alone, as the TPU kernel it replaces; its launch
-from points under from_points_* keys), and `stego_launches`, each kernel's
-launches in the Jackal runtime's STEGO replay (counted the same way). Without a CUDA device, or outside
+from points under from_points_* keys), and `stego_launches`,
+`anomaly_launches`, `graph_launches`, `golden_launches` and
+`features_launches`, each kernel's launches in the Jackal runtime's STEGO
+replay, the anomaly runtime's replay, the ten graph frames, the golden
+replay and the facade's sift and histogram extractions (each counted the
+same way). Without a CUDA device, or outside
 the repository, it exits non-zero and prints no result.
 """
 
@@ -1089,6 +1102,258 @@ def stego_phase(dev, card: str, g, demo, seq_path: Path) -> dict:
     return out
 
 
+FEATURE_TOL = {"sift": 1e-4, "histogram": 1e-5, "lk_px": 1e-3}  # card against CPU, the same plain functions
+MODE_MAP_MAE = 1e-3  # the anomaly and graph frames against the CPU tail on the card's features
+ANOMALY_LOSS_RTOL = 5e-2  # the anomaly runtime's per-step losses, card against CPU (bf16 backbones)
+
+
+def features_phase(dev, card: str, size: int = 224) -> dict:
+    """Dense SIFT, the colour histogram and pyramidal LK on the card against
+    the same functions on the CPU, at `size` px; then the facade's sift and
+    histogram modes with SLIC on the card (K3 11 launches per image). No
+    kernel is their own: they are plain PyTorch on CUDA tensors. Returns the
+    facade's launches."""
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.feature_extractor.feature_extractor import FeatureExtractor
+    from wild_visual_navigation_tpu_torch.feature_extractor.sift import dense_sift_features
+    from wild_visual_navigation_tpu_torch.ops.histogram import dense_color_histogram
+    from wild_visual_navigation_tpu_torch.ops.optical_flow import track_points
+
+    rng = np.random.default_rng(8)
+    img = rng.random((3, size // 8, size // 8), dtype=np.float32).repeat(8, 1).repeat(8, 2)
+    x = torch.from_numpy(np.clip(img + 0.05 * rng.standard_normal(img.shape).astype(np.float32), 0, 1))
+    xd = x.to(dev)
+    for name, fn in (("sift", dense_sift_features), ("histogram", dense_color_histogram)):
+        got, want = fn(xd), fn(x)
+        err = float((got.cpu() - want).abs().max())
+        lat = wall_ms(fn, [(xd,)] * (WARMUP + N_TIMED))
+        print(f"[features] {name} (3, {size}, {size}) -> {tuple(got.shape)} on the card against the CPU: max abs err "
+              f"{err:.3e} (tol {FEATURE_TOL[name]:.0e}); {lat:.3f} ms on the host clock | {card}")
+        require(err <= FEATURE_TOL[name] and bool(torch.isfinite(got).all()), f"{name} on the card")
+    nxt = torch.roll(x, (1, 2), dims=(1, 2))
+    pts = torch.from_numpy(rng.uniform(20, size - 24, (256, 2)).astype(np.float32))
+    p_card, v_card = track_points(xd, nxt.to(dev), pts.to(dev))
+    p_cpu, v_cpu = track_points(x, nxt, pts)
+    err = float((p_card.cpu() - p_cpu).abs().max())
+    same_valid = bool(torch.equal(v_card.cpu(), v_cpu))
+    lat = wall_ms(track_points, [(xd, nxt.to(dev), pts.to(dev))] * (WARMUP + N_TIMED))
+    print(f"[features] LK track_points, 256 points over 3 levels on {size}x{size} (moved by (2, 1) px): positions max "
+          f"abs err {err:.3e} px (tol {FEATURE_TOL['lk_px']:.0e}), validity equal {same_valid} ({int(v_cpu.sum())} valid), "
+          f"median shift {p_card.cpu().sub(pts).median(0).values.tolist()}; {lat:.3f} ms on the host clock | {card}")
+    require(err <= FEATURE_TOL["lk_px"] and same_valid and float(v_cpu.float().mean()) > 0.9, "LK on the card")
+    counts = {}
+    for ft, dim in (("sift", 384), ("histogram", 90)):
+        fe = FeatureExtractor(segmentation_type="slic", feature_type=ft, input_size=size, device=dev)
+        port.reset_launch_counts()
+        ex = fe.extract(xd[None], return_dense_features=True)
+        torch.cuda.synchronize()
+        c = port.launch_counts()
+        ref = fe.compute_features(x[None])
+        d_err = float((ex.dense_features.cpu() - ref).abs().max())
+        print(f"[features] facade {ft} x slic at {size} on the card: features {tuple(ex.features.shape)}, "
+              f"{int(ex.center_valid.sum())} segments, launches {c}; dense features against the CPU max abs err "
+              f"{d_err:.3e} (tol {FEATURE_TOL[ft]:.0e})")
+        require(tuple(ex.features.shape) == (100, dim) and bool(torch.isfinite(ex.features).all())
+                and d_err <= FEATURE_TOL[ft], f"the facade's {ft} mode")
+        require(c == {"flash_attention": 0, "pixelwise_score": 0, "slic_step": 11, "fill_hulls": 0},
+                f"the facade's {ft} x slic launches K3 11 times and nothing else")
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    return counts
+
+
+def anomaly_params():
+    """The product's node settings (rates raised for a replay at virtual
+    time) and the experiment's LinearRnvp defaults (input 384, topology
+    [200], 2 flows, odds mask, permutations)."""
+    from wild_visual_navigation_tpu_torch.cfg.experiment import ExperimentParams
+
+    fe, ln = runtime_params()
+    exp = ExperimentParams()
+    exp.model.name = "LinearRnvp"
+    return fe, ln, exp
+
+
+def make_anomaly_runtime(dev, like=None):
+    """WVNRuntime(anomaly_detection=True) at the product's settings (ViT-S/8
+    at 224 seed 0, SLIC 100, per pixel, buffer 256, fan-out 32, batch 8)."""
+    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
+
+    fe, ln, exp = anomaly_params()
+    backbone = None
+    if like is not None:
+        backbone = {k: v.cpu() for k, v in like.feature_extractor._extractor.vit.state_dict().items()}
+    return WVNRuntime(fe_params=fe, ln_params=ln, exp_params=exp, seed=0, anomaly_detection=True,
+                      buffer_capacity=256, reprojection_fanout=32, device=dev, backbone_params=backbone)
+
+
+def modes_phase(dev, card: str, demo, seq_path: Path, size: int = 224) -> dict:
+    """The anomaly (LinearRnvp) and graph (SimpleGCN) frames at full width,
+    the anomaly runtime's replay of the mission on the card and the CPU, and
+    the demo golden replay on the card. Returns each path's launches, the
+    counts set to 0 just before it and read just after."""
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.feature_extractor.dino import DinoInterface
+    from wild_visual_navigation_tpu_torch.models.registry import apply_model, get_model
+    from wild_visual_navigation_tpu_torch.models.vit import dense_features
+    from wild_visual_navigation_tpu_torch.ops.pixelwise import pixelwise_map_rows_chunked
+    from wild_visual_navigation_tpu_torch.ops.resize import imagenet_normalize, resize_image
+    from wild_visual_navigation_tpu_torch.runtime import load_sequence, run_replay
+    from wild_visual_navigation_tpu_torch.runtime.demo_golden import (
+        OVERLAY_MAE_LIMIT,
+        TRAV_MAE_LIMIT,
+        replay_against_golden,
+    )
+    from wild_visual_navigation_tpu_torch.runtime.fused import _score_rows, build_fused_frame_fn
+    from wild_visual_navigation_tpu_torch.runtime.replay import Sequence
+    from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig, confidence_init
+
+    out = {}
+    _, _, exp = anomaly_params()
+    heads = {"anomaly": {"name": "LinearRnvp", "linear_rnvp_cfg": {**exp.model.linear_rnvp_cfg.to_dict(),
+                                                                    "input_size": 384}},
+             "graph": {"name": "SimpleGCN", "simple_gcn_cfg": {**exp.model.simple_gcn_cfg.to_dict(),
+                                                               "input_size": 384}}}
+    dino = DinoInterface(input_size=size, device=dev, seed=0)
+    cg_cfg = ConfidenceConfig(std_factor=0.5)
+    x0 = torch.from_numpy(demo[10:11]).to(dev)
+    with torch.no_grad():
+        feat0 = dense_features(dino.vit, imagenet_normalize(resize_image(x0, size, size)))  # (1, 384, 28, 28) at 224
+    # 1. the anomaly frame (per pixel, the chunked path) and the graph frame (per segment) at 224
+    for kind, cfg in heads.items():
+        anomaly = kind == "anomaly"
+        head = get_model(cfg, device=dev, generator=torch.Generator().manual_seed(2)).eval().requires_grad_(False)
+        frame = build_fused_frame_fn(dino.vit, head, cg_cfg, size, anomaly=anomaly)
+        with torch.no_grad():
+            if anomaly:  # confidence statistics at the scale of the flow's negative log-likelihood
+                o = head(feat0[0].reshape(384, -1).T)
+                score = -(o["logprob"].sum(-1) + o["log_det"])
+            else:
+                rows = feat0[0].reshape(384, -1).T
+                score = ((apply_model(head, rows)[:, 1:] - rows) ** 2).mean(-1)
+        cg = confidence_init(dev)._replace(mean=score.mean(), std=score.std())
+        torch.cuda.synchronize()
+        port.reset_launch_counts()
+        per = []
+        for i in range(10):
+            before = port.launch_counts()
+            res = frame(cg, torch.from_numpy(demo[i : i + 1]).to(dev))
+            per.append({k: v - before[k] for k, v in port.launch_counts().items()})
+        torch.cuda.synchronize()
+        counts = port.launch_counts()
+        require(all(p == {"flash_attention": 12, "pixelwise_score": 0, "slic_step": 11, "fill_hulls": 0} for p in per),
+                f"the {kind} frame launches K1 12, K3 11, K2 0 per frame: {per}")
+        if not anomaly:
+            out["graph_launches"] = counts
+        res = frame(cg, x0)
+        head_cpu = get_model(cfg).eval().requires_grad_(False)
+        head_cpu.load_state_dict({k: v.cpu() for k, v in head.state_dict().items()})
+        tail = build_fused_frame_fn(dino.vit, head_cpu, cg_cfg, size, anomaly=anomaly).tail
+        ref = tail(type(cg)(*(t.cpu() for t in cg)), feat0.cpu(), res.segments[None].cpu())
+        t_mae = float((res.traversability.cpu() - ref.traversability[0]).abs().mean())
+        c_mae = float((res.confidence.cpu() - ref.confidence[0]).abs().mean())
+        finite = all(bool(torch.isfinite(m).all()) and float(m.min()) >= 0 and float(m.max()) <= 1
+                     for m in (res.traversability, res.confidence))
+        lat = wall_ms(frame, [(cg, torch.from_numpy(demo[i % 50 : i % 50 + 1]).to(dev)) for i in
+                              range(WARMUP + N_TIMED)])
+        prof = profile_calls(frame, [(cg, torch.from_numpy(demo[i : i + 1]).to(dev)) for i in range(10)])
+        what = ("LinearRnvp [384, topology 200, 2 flows] per pixel in row bands" if anomaly
+                else "SimpleGCN [384, 256, 128, 1+384] per segment over the SLIC adjacency")
+        print(f"[{kind} frame] DINO ViT-S/8 at {size}, SLIC 100, {what}: launches per frame {per[0]} over 10 demo "
+              f"frames; against the CPU tail on the card's features and segments: trav MAE {t_mae:.3e}, conf MAE "
+              f"{c_mae:.3e} (tol {MODE_MAP_MAE:.0e}); maps finite in [0, 1]: {finite}; trav std "
+              f"{float(res.traversability.std()):.3e}", flush=True)
+        print(f"[time] {kind} frame B=1 at {size}: {lat:.3f} ms on the host clock; under the profiler {prof[0]:.3f} ms "
+              f"per frame, device kernels {prof[1]:.3f} ms, {prof[2]:.0f} launches per frame, busy share "
+              f"{prof[3]:.3f} | {card}", flush=True)
+        require(t_mae <= MODE_MAP_MAE and c_mae <= MODE_MAP_MAE and finite, f"the {kind} frame against the CPU tail")
+        if anomaly:
+            # the scoring alone is host-bound too, so CUDA events around it would count the device's idle
+            # gaps: its device time is the profiler's sum of its kernels
+            chunked = profile_calls(lambda f: pixelwise_map_rows_chunked(
+                lambda r: _score_rows(head, cg_cfg, cg, r, True), f, size, size), [(feat0,)] * 10)
+            print(f"[time] the anomaly frame's chunked LinearRnvp scoring alone ({size * size} pixels in bands of 32 "
+                  f"rows), under the profiler: {chunked[0]:.3f} ms per call, device kernels {chunked[1]:.3f} ms, "
+                  f"{chunked[2]:.0f} launches, {chunked[1] / prof[1]:.3f} of the frame's device time and "
+                  f"{chunked[2] / prof[2]:.3f} of its launches | {card}")
+            profile_frames(frame, cg, demo, dev, card, tag="anomaly profile")
+
+    # 2. the anomaly runtime: the recorded mission through run_replay on the card
+    sequence = load_sequence(str(seq_path))
+    rt = make_anomaly_runtime(dev)
+    require(rt._fused_frame is not None and rt.anomaly_detection, "anomaly mode runs the fused DINO frame")
+    t0 = time.perf_counter()
+    rep, losses, counts = replay_runtime(rt, sequence)
+    replay_s = time.perf_counter() - t0
+    n = max(rep.frames_processed, 1)
+    per = {k: counts[k] / n for k in ("flash_attention", "pixelwise_score", "slic_step")}
+    k4 = counts["fill_hulls"] / max(rep.supervision_updates, 1)
+    print(f"[anomaly runtime] WVNRuntime(anomaly_detection=True), run_replay of {len(sequence.frames)} frames + "
+          f"{len(sequence.states)} robot states in {replay_s:.2f} s: {rep.frames_processed} frames processed, "
+          f"{rep.supervision_updates} supervision updates, {rep.train_steps} train steps, {rep.valid_nodes} valid "
+          f"nodes; losses read back, first {[round(x, 3) for x in losses[:3]]}, last "
+          f"{[round(x, 3) for x in losses[-3:]]}; launches {counts}: per accepted frame K1 {per['flash_attention']:.2f}, K2 {per['pixelwise_score']:.2f}, "
+          f"K3 {per['slic_step']:.2f}; per flush K4 {k4:.2f}", flush=True)
+    require(rep.frames_processed == len(sequence.frames), "every anomaly frame accepted")
+    require(per == {"flash_attention": 12, "pixelwise_score": 0, "slic_step": 11} and k4 == 1,
+            "K1 12, K2 0, K3 11 per accepted anomaly frame and K4 1 per flush")
+    require(rep.supervision_updates > 0 and rep.train_steps > 0 and rep.valid_nodes >= 5 and all(np.isfinite(losses)),
+            "the anomaly mission learns with finite losses")
+    trav, conf = rep.last_result.to_numpy()
+    require(trav.shape == (size, size) and np.isfinite(trav).all() and trav.min() >= 0 and trav.max() <= 1
+            and (conf == 1).all(), "the last anomaly frame's maps")
+    out["anomaly_launches"] = counts
+
+    # its first 20 frames on the card and on the CPU
+    last = sequence.frames[19].stamp
+    head20 = Sequence(frames=sequence.frames[:20], states=[s for s in sequence.states if s.stamp <= last])
+    runs = {}
+    for d in (dev, "cpu"):
+        r = make_anomaly_runtime(d, like=rt)
+        step_losses = record_train_losses(r)
+        t0 = time.perf_counter()
+        rp = run_replay(r, head20)
+        runs[str(d)] = (r, rp, [float(x) for x in step_losses], time.perf_counter() - t0)
+    (r_k, rp_k, l_k, _), (r_c, rp_c, l_c, cpu_s) = runs[str(dev)], runs["cpu"]
+    occupied = r_k.estimator.buffer.valid.cpu()
+    m_k, m_c = r_k.estimator.buffer.supervision_mask.cpu()[occupied], r_c.estimator.buffer.supervision_mask[occupied]
+    mask_differ = int((m_k != m_c).sum())
+    loss_diff = max((abs(a - b) / abs(b) for a, b in zip(l_k, l_c)), default=float("nan"))
+    same = all(getattr(rp_k, f) == getattr(rp_c, f) for f in
+               ("frames_processed", "supervision_updates", "train_steps", "valid_nodes"))
+    print(f"[anomaly runtime] the first 20 frames on the card and on the CPU ({cpu_s:.1f} s): counts equal {same} "
+          f"({rp_c.frames_processed} frames, {rp_c.supervision_updates} updates, {rp_c.train_steps} steps, "
+          f"{rp_c.valid_nodes} valid nodes); supervision masks differ in {mask_differ} of {m_k.numel()} pixels "
+          f"(max {1e-4 * m_k.numel():.0f}); per-step losses card {[round(x, 3) for x in l_k]}, CPU "
+          f"{[round(x, 3) for x in l_c]}, max relative difference {loss_diff:.3e} (tol {ANOMALY_LOSS_RTOL})",
+          flush=True)
+    require(same and rp_k.train_steps > 0 and len(l_k) == len(l_c) == rp_k.train_steps, "the same counts on the CPU")
+    require(mask_differ <= 1e-4 * m_k.numel() and loss_diff <= ANOMALY_LOSS_RTOL,
+            "masks and losses agree with the CPU replay")
+    del runs, r_k, r_c, rt
+
+    # 3. the demo golden replay (sift on a 64-px grid) on the card against the committed golden
+    torch.cuda.synchronize()
+    port.reset_launch_counts()
+    t0 = time.perf_counter()
+    g = replay_against_golden(dev)
+    torch.cuda.synchronize()
+    counts = port.launch_counts()
+    print(f"[golden] demo mission replay (sift x grid at 64 px, [64, 32, 1] head from the committed initial head, "
+          f"sampling seed 7) on the card in {time.perf_counter() - t0:.2f} s: train steps {g['train_steps']} (golden "
+          f"{g['golden_train_steps']}, within {g['steps_limit']}), valid nodes {g['valid_nodes']} (golden "
+          f"{g['golden_valid_nodes']}), {g['flushes']} flushes; traversability MAE {g['trav_mae']:.4e} (limit "
+          f"{TRAV_MAE_LIMIT}), overlay MAE {g['overlay_mae']:.4f} (limit {OVERLAY_MAE_LIMIT}, uint8); launches "
+          f"{counts}", flush=True)
+    require(g["ok"], "the golden replay meets the golden's limits")
+    require(counts["fill_hulls"] == g["flushes"] > 0, "K4 once per flush in the golden replay")
+    out["golden_launches"] = counts
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1392,6 +1657,16 @@ def main() -> int:
                                                      ("flash_attention", "pixelwise_score", "fill_hulls")),
             "the STEGO replay launched K1, K2 and K4, and K3 never")
 
+    # ---- 4f. SIFT, histogram and LK; the anomaly and graph frames; the anomaly runtime; the golden replay
+    features_launches = features_phase(dev, card)
+    modes = modes_phase(dev, card, demo, ROOT / "assets/sequences/demo_mission.npz")
+    require(all(modes["anomaly_launches"][k] > 0 for k in ("flash_attention", "slic_step", "fill_hulls"))
+            and modes["anomaly_launches"]["pixelwise_score"] == 0,
+            "the anomaly replay launched K1, K3 and K4, K2 never")
+    require(all(modes["graph_launches"][k] > 0 for k in ("flash_attention", "slic_step")),
+            "the graph frames launched K1 and K3")
+    require(modes["golden_launches"]["fill_hulls"] > 0, "the golden replay launched K4")
+
     # ---- 5. timings (device time from CUDA events; frame latency on the host clock)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape, what in ATTN_SHAPES.items():
@@ -1513,7 +1788,9 @@ def main() -> int:
         "fill_hulls": ("fill_hulls.cu", "wild_visual_navigation_tpu/ops/rasterize_pallas.py:52"),
     }
     kernels = [{"name": name, "route": "cuda", "source": f"wild_visual_navigation_tpu_torch/csrc/{src}",
-                "replaces": rep, "launches": launches[name], **results[name], "stego_launches": stego_launches[name]}
+                "replaces": rep, "launches": launches[name], **results[name], "stego_launches": stego_launches[name],
+                "anomaly_launches": modes["anomaly_launches"][name], "graph_launches": modes["graph_launches"][name],
+                "golden_launches": modes["golden_launches"][name], "features_launches": features_launches[name]}
                for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

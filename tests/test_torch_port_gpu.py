@@ -511,3 +511,130 @@ def test_jackal_runtime_callbacks_launch_each_kernel(cuda):
         torch.cuda.synchronize()
         assert sum(port.launch_counts().values()) == 0
     assert flushes > 0 and rt.estimator.step > 0
+
+
+def test_sift_histogram_and_lk_on_the_card_match_the_cpu(cuda):
+    """Dense SIFT, the colour histogram and pyramidal LK (plain PyTorch, no
+    kernel of their own) on a 224-px image on the card against the same
+    functions on the CPU: SIFT within 1e-4, the histogram within 1e-5, LK
+    positions within 1e-3 px with the same validity."""
+    from wild_visual_navigation_tpu_torch.feature_extractor.sift import dense_sift_features
+    from wild_visual_navigation_tpu_torch.ops.histogram import dense_color_histogram
+    from wild_visual_navigation_tpu_torch.ops.optical_flow import track_points
+
+    rng = np.random.default_rng(8)
+    img = rng.random((3, 28, 28), dtype=np.float32).repeat(8, 1).repeat(8, 2)
+    img = np.clip(img + 0.05 * rng.standard_normal(img.shape).astype(np.float32), 0, 1)
+    x = torch.from_numpy(img)
+    port.reset_launch_counts()
+    for fn, tol in ((dense_sift_features, 1e-4), (dense_color_histogram, 1e-5)):
+        got = fn(x.to(cuda)).cpu()
+        torch.testing.assert_close(got, fn(x), atol=tol, rtol=0)
+    nxt = torch.roll(x, (1, 2), dims=(1, 2))
+    pts = torch.from_numpy(rng.uniform(20, 200, (256, 2)).astype(np.float32))
+    p_card, v_card = track_points(x.to(cuda), nxt.to(cuda), pts.to(cuda))
+    p_cpu, v_cpu = track_points(x, nxt, pts)
+    assert torch.equal(v_card.cpu(), v_cpu) and bool(v_cpu.float().mean() > 0.9)
+    torch.testing.assert_close(p_card.cpu(), p_cpu, atol=1e-3, rtol=0)
+    assert sum(port.launch_counts().values()) == 0
+
+
+def _nll_state(head, rows, device):
+    """A confidence state at the scale of the anomaly head's negative
+    log-likelihood on `rows`."""
+    from wild_visual_navigation_tpu_torch.utils.confidence_generator import confidence_init
+
+    with torch.no_grad():
+        out = head(rows)
+        nll = -(out["logprob"].sum(-1) + out["log_det"])
+    return confidence_init(device)._replace(mean=nll.mean(), std=nll.std())
+
+
+@pytest.mark.parametrize("kind", ["anomaly", "graph"])
+def test_anomaly_and_graph_frames_launch_and_match_the_cpu_tail(cuda, kind):
+    """The DINO frame at 224 (ViT-S/8, SLIC 100) with the default LinearRnvp
+    scored per pixel, or a SimpleGCN [256, 128, 1] scored per segment: K1 12
+    times, K3 11 times, K2 never; maps within 1e-3 MAE of the CPU tail fed
+    the card's features and segments."""
+    from wild_visual_navigation_tpu_torch.feature_extractor.dino import DinoInterface
+    from wild_visual_navigation_tpu_torch.models.registry import get_model
+    from wild_visual_navigation_tpu_torch.models.vit import dense_features
+    from wild_visual_navigation_tpu_torch.ops.resize import imagenet_normalize, resize_image
+    from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_frame_fn
+    from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig, confidence_init
+
+    dino = DinoInterface(input_size=224, device=cuda, seed=0)
+    cfg = ({"name": "LinearRnvp", "linear_rnvp_cfg": {"input_size": 384}} if kind == "anomaly" else
+           {"name": "SimpleGCN", "simple_gcn_cfg": {"input_size": 384, "hidden_sizes": [256, 128, 1]}})
+    head = get_model(cfg, device=cuda, generator=torch.Generator().manual_seed(2)).eval()
+    anomaly = kind == "anomaly"
+    frame = build_fused_frame_fn(dino.vit, head, ConfidenceConfig(), 224, anomaly=anomaly,
+                                 prediction_per_pixel=anomaly)
+    img = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (1, 3, 224, 224), dtype=np.uint8)).to(cuda)
+    with torch.no_grad():
+        feat = dense_features(dino.vit, imagenet_normalize(resize_image(img.float() / 255.0, 224, 224)))
+    cg = _nll_state(head, feat[0].reshape(384, -1).T, cuda) if anomaly else confidence_init(cuda)
+    port.reset_launch_counts()
+    res = frame(cg, img)
+    torch.cuda.synchronize()
+    assert port.launch_counts() == {"flash_attention": 12, "pixelwise_score": 0, "slic_step": 11, "fill_hulls": 0}
+    head_cpu = get_model(cfg).eval()
+    head_cpu.load_state_dict({k: v.cpu() for k, v in head.state_dict().items()})
+    tail = build_fused_frame_fn(dino.vit, head_cpu, ConfidenceConfig(), 224, anomaly=anomaly,
+                                prediction_per_pixel=anomaly).tail
+    ref = tail(type(cg)(*(t.cpu() for t in cg)), feat.cpu(), res.segments[None].cpu())
+    for name in ("traversability", "confidence"):
+        got = getattr(res, name)
+        assert bool(torch.isfinite(got).all()) and float(got.min()) >= 0 and float(got.max()) <= 1
+        assert float((got.cpu() - getattr(ref, name)[0]).abs().mean()) <= 1e-3
+    assert float(res.traversability.std()) > 0
+
+
+def test_anomaly_runtime_callbacks_launch_each_kernel(cuda):
+    """WVNRuntime(anomaly_detection=True) at the product's settings (ViT-S/8
+    at 224, SLIC 100, LinearRnvp [200] x 2 flows, per pixel): each accepted
+    frame launches K1 12 times, K3 11 times and K2 never; each flush K4
+    once; the anomaly head trains."""
+    from wild_visual_navigation_tpu_torch.cfg.experiment import ExperimentParams
+    from wild_visual_navigation_tpu_torch.cfg.node_params import FeatureExtractorNodeParams, LearningNodeParams
+    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
+
+    from pathlib import Path
+
+    exp = ExperimentParams()
+    exp.model.name = "LinearRnvp"
+    rt = WVNRuntime(fe_params=FeatureExtractorNodeParams(image_callback_rate=1e9),
+                    ln_params=LearningNodeParams(supervision_callback_rate=1e9, min_samples_for_training=0),
+                    exp_params=exp, seed=0, anomaly_detection=True, device=cuda)
+    seq = np.load(Path(__file__).resolve().parent.parent / "assets/sequences/demo_mission.npz")
+    flushes = 0
+    for i in range(8):
+        port.reset_launch_counts()
+        res = rt.image_callback(seq["frame_images"][i], float(seq["frame_stamps"][i]), "front", seq["frame_K"][i],
+                                64, 64, seq["frame_pose"][i], seq["frame_cam_in_base"][i])
+        torch.cuda.synchronize()
+        assert port.launch_counts() == {"flash_attention": 12, "pixelwise_score": 0, "slic_step": 11, "fill_hulls": 0}
+        trav, conf = res.to_numpy()
+        assert trav.shape == (224, 224) and np.isfinite(trav).all() and (conf == 1).all()
+        port.reset_launch_counts()
+        flushed = rt.robot_state_callback(float(seq["state_stamps"][i]), seq["state_pose"][i], seq["state_twist"][i],
+                                          seq["state_desired"][i])
+        torch.cuda.synchronize()
+        assert port.launch_counts()["fill_hulls"] == int(flushed)
+        flushes += int(flushed)
+        rt.learning_step()
+    assert flushes > 0 and rt.estimator.step > 0 and np.isfinite(rt.estimator.loss)
+
+
+def test_golden_replay_on_the_card(cuda):
+    """The demo golden replay (sift on a 64-px grid) on the card meets the
+    golden's own limits, with K4 launched once per flush."""
+    from wild_visual_navigation_tpu_torch.runtime.demo_golden import replay_against_golden
+
+    port.reset_launch_counts()
+    out = replay_against_golden(cuda)
+    torch.cuda.synchronize()
+    counts = port.launch_counts()
+    assert out["ok"], out
+    assert counts["fill_hulls"] == out["flushes"] > 0
+    assert counts["flash_attention"] == counts["slic_step"] == counts["pixelwise_score"] == 0

@@ -493,7 +493,11 @@ def test_pause_flags_and_unported_heads():
     est.pause_mission_graph = True
     _feed(est, False, [0.0], [])
     assert est.get_mission_nodes() == []
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _port_estimator(model_cfg={"name": "SimpleGCN"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _port_estimator(anomaly_detection=True)
+    # the graph head and anomaly mode are ported (ROADMAP.md item 22)
+    gcn = _port_estimator(model_cfg={"name": "SimpleGCN", "simple_gcn_cfg": {"input_size": 16,
+                                                                            "hidden_sizes": [8, 1]}})
+    assert type(gcn.model).__name__ == "SimpleGCN"
+    rnvp = _port_estimator(model_cfg={"name": "LinearRnvp", "linear_rnvp_cfg": {"input_size": 16,
+                                                                               "coupling_topology": [8]}},
+                           anomaly_detection=True)
+    assert type(rnvp.model).__name__ == "LinearRnvp" and isinstance(rnvp._loss_cfg, tloss.AnomalyLossConfig)

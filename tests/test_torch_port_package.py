@@ -41,6 +41,10 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax():
     files = _port_files()
     assert len(files) > 20
+    new = {"ops/histogram.py", "ops/optical_flow.py", "feature_extractor/sift.py", "models/linear_rnvp.py",
+           "models/simple_gcn.py", "visu/visualizer.py", "visu/markers.py", "scripts/overlay_images.py",
+           "runtime/demo_golden.py"}
+    assert new <= {str(f.relative_to(PKG)) for f in files if PKG in f.parents}
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files}
     assert not {k: v for k, v in bad.items() if v}
 
@@ -212,11 +216,18 @@ def test_double_mlp_params_bridge():
 
 
 def test_unported_heads_name_their_roadmap_item():
-    from wild_visual_navigation_tpu_torch.models.registry import get_model
+    """Every head of the JAX registry is ported (the graph head and the
+    anomaly flow came with ROADMAP.md item 22): each builds at its config
+    defaults and an unknown name is refused."""
+    from wild_visual_navigation_tpu.models.registry import _MODELS as JMODELS
+    from wild_visual_navigation_tpu_torch.models.registry import _MODELS, get_model, model_needs_edges
 
+    assert set(_MODELS) == set(JMODELS)
     for name in ("SimpleGCN", "LinearRnvp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_model({"name": name})
+        m = get_model({"name": name})
+        assert type(m).__name__ == name and model_needs_edges(m) == (name == "SimpleGCN")
+    with pytest.raises(ValueError, match="not registered"):
+        get_model({"name": "NoSuchHead"})
 
 
 def test_copied_config_matches_jax_but_for_the_device():

@@ -449,18 +449,33 @@ def _runtime_kw(build_fe, **fe_kw):
                 build_feature_extractor=build_fe)
 
 
+def _anomaly_runtime():
+    kw = _runtime_kw(False)
+    kw["exp_params"].model.name = "LinearRnvp"
+    return WVNRuntime(**kw, anomaly_detection=True)
+
+
 @pytest.mark.parametrize("build,item", [
     (lambda: WVNRuntime(**_runtime_kw(False), mesh=object()), "item 27"),
     (lambda: WVNRuntime(**_runtime_kw(False), gridmap_size=64), "item 24"),
-    (lambda: WVNRuntime(**_runtime_kw(False), anomaly_detection=True), "item 22"),
+    (lambda: _anomaly_runtime(), None),
     (lambda: WVNRuntime(**_runtime_kw(True, feature_type="torchvision")), "item 21"),
     (lambda: WVNRuntime(**_runtime_kw(True, dino_quant="int8")), "item 28"),
     (lambda: WVNRuntime(**_runtime_kw(False)).attach_distributed_trainer(), "item 27"),
     (lambda: WVNRuntime(**_runtime_kw(False)).get_carrot(), "item 24"),
     (lambda: WVNRuntime(**_runtime_kw(False, dino_quant="int8")).calibrate_backbone([]), "item 28"),
-    (lambda: WVNRuntime(**_runtime_kw(False)).export_supervision_markers(), "Slice 5"),
+    (lambda: WVNRuntime(**_runtime_kw(False)).export_supervision_markers(), None),
 ], ids=["mesh", "gridmap", "anomaly", "torchvision", "int8", "distributed", "carrot", "calibrate", "markers"])
 def test_unported_options_raise_naming_their_item(build, item):
+    """What is not ported raises naming its ROADMAP.md item; anomaly mode
+    (item 22) and the supervision markers (item 23) are ported and run."""
+    if item is None:
+        out = build()
+        if isinstance(out, WVNRuntime):
+            assert out.anomaly_detection and type(out.estimator.model).__name__ == "LinearRnvp"
+        else:  # no robot state yet: an empty ribbon
+            assert out.num_triangles == 0 and out.points.shape == (0, 3)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
         build()
 
@@ -583,5 +598,6 @@ def test_demo_online_and_minimal_example_run_on_the_cpu(tmp_path):
     assert st.step > 0 and st.mission_graph_num_valid_node > 0
     assert (tmp_path / "demo" / "learning_curves.csv").exists() and (tmp_path / "demo" / "learning_curves.png").exists()
     assert len(list((tmp_path / "demo" / "images").glob("*.png"))) >= 1
+    assert (tmp_path / "demo" / "footprints.ply").read_text().startswith("ply\n")  # the markers, as JAX's demo writes
     report = minimal_online_loop.main(["--device", "cpu", "--size", "48"])
     assert report.frames_processed == 30 and report.train_steps > 0 and np.isfinite(report.final_loss)

@@ -383,8 +383,50 @@ def test_fused_stego_frame_checks_its_config(stegos, head_pair):
     tsi = stegos[1]
     with pytest.raises(ValueError, match="patch-aligned"):
         tbuild(tsi, head_pair[2], tcg.ConfidenceConfig(), SIZE, input_width=44)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 22"):  # no graph head to pass yet
-        get_model({"name": "SimpleGCN"})
+    # a graph head (ported with ROADMAP.md item 22) is accepted; it scores per cluster
+    gcn = get_model({"name": "SimpleGCN", "simple_gcn_cfg": {"input_size": 90, "hidden_sizes": [16, 8, 1]}})
+    frame = tbuild(tsi, gcn, tcg.ConfidenceConfig(), SIZE, prediction_per_pixel=True)
+    res = frame(tcg.confidence_init(), torch.from_numpy(_image(14)))
+    per_cluster = res.traversability.new_zeros(S).index_put_((res.segments.long().reshape(-1),),
+                                                             res.traversability.reshape(-1))
+    assert torch.equal(res.traversability, per_cluster[res.segments.long()])  # one score per cluster
+
+
+@pytest.mark.parametrize("pp", [True, False], ids=["per-pixel-config", "per-segment-config"])
+def test_fused_stego_frame_with_a_graph_head_matches_jax(stegos, pp):
+    """A SimpleGCN head on the fused STEGO frame scores per cluster over the
+    cluster adjacency in either prediction mode, as JAX's frame does:
+    labels equal, maps within 2e-3."""
+    from wild_visual_navigation_tpu_torch.utils.params import simple_gcn_state_from_jax
+
+    jsi, tsi = stegos
+    cfg = {"name": "SimpleGCN", "simple_gcn_cfg": {"input_size": 90, "hidden_sizes": [32, 16, 1],
+                                                   "reconstruction": True}}
+    jm = jget_model(cfg)
+    mparams = _np(jm.init(jax.random.PRNGKey(4), jnp.zeros((1, 90)), jnp.zeros((2, 0), jnp.int32),
+                          jnp.zeros((0,), bool)))
+    tm = get_model(cfg)
+    tm.load_state_dict(simple_gcn_state_from_jax(mparams))
+    kw = dict(max_edges=64, prediction_per_pixel=pp)
+    jframe = jbuild(jsi, jm, jcg.ConfidenceConfig(std_factor=0.5), SIZE, **kw)
+    tframe = tbuild(tsi, tm, tcg.ConfidenceConfig(std_factor=0.5), SIZE, **kw,
+                    init_idx=_jax_init_idx(jax.random.PRNGKey(0)))
+    img = _image(15)
+    first = jframe((jsi.backbone_params, jsi.head_params), mparams, jcg.confidence_init(), jnp.asarray(img))
+    pooled = np.asarray(first.features)
+    out = np.asarray(jm.apply(mparams, pooled, first.edges, first.edge_valid))
+    reco = np.mean((out[:, 1:] - pooled) ** 2, -1)
+    m, s = float(reco.mean()), float(reco.std())
+    jst = jcg.confidence_init()._replace(mean=jnp.float32(m), std=jnp.float32(s))
+    tst = tcg.confidence_init()._replace(mean=torch.tensor(m), std=torch.tensor(s))
+    want = jframe((jsi.backbone_params, jsi.head_params), mparams, jst, jnp.asarray(img))
+    got = tframe(tst, torch.from_numpy(img))
+    _equal(got.segments, want.segments)
+    for name in ("edges", "edge_valid"):
+        _equal(getattr(got, name), getattr(want, name))
+    for name in ("traversability", "confidence"):
+        _close(getattr(got, name), getattr(want, name), atol=MAP_ATOL)
+    assert float(got.confidence.std()) > 0
 
 
 def test_fused_stego_frame_draws_its_indices_once(stegos, head_pair):

@@ -7,13 +7,11 @@ untraversable band where velocity tracking collapses), then writes:
 
   <out>/learning_curves.{csv,png}
   <out>/images/??????_*.png    (input | trav | confidence)
+  <out>/footprints.ply         (the driven-footprint ribbon, visu/markers.py)
 
 Usage:
     python -m wild_visual_navigation_tpu_torch.demo_online [--duration 12] [--size 224] [--obstacle_x 6.0]
                                                           [--device cuda|cpu]
-
-The supervision-marker export of the JAX demo (visu/) is not ported yet
-(ROADMAP.md Queue 1, Slice 5).
 """
 
 from __future__ import annotations
@@ -87,10 +85,12 @@ def main(argv=None):
 
     csv = logger.store()
     png = logger.plot_learning_curves()
+    tri = rt.export_supervision_markers(ply_path=f"{args.out}/footprints.ply")
     st = rt.system_state
     print(f"steps: {st.step}  valid nodes: {st.mission_graph_num_valid_node}  "
           f"loss: {st.loss_total:.4f} (trav {st.loss_trav:.4f} reco {st.loss_reco:.4f})")
     print(f"wrote {csv}\nwrote {png}\nimages under {args.out}/images")
+    print(f"wrote {args.out}/footprints.ply ({tri.num_triangles} triangles)")
     return st
 
 

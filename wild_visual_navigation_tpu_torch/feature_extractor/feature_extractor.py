@@ -1,8 +1,9 @@
 """FeatureExtractor facade: image -> (edges, features, segments, centers).
 
 Port of wild_visual_navigation_tpu/feature_extractor/feature_extractor.py
-for the DINO / DINOv2 and STEGO backbones and the slic, grid, none
-(pixel-wise), random and stego segmentations. Every output keeps the JAX
+for the DINO / DINOv2 and STEGO backbones, dense SIFT and the colour
+histogram, and the slic, grid, none (pixel-wise), random and stego
+segmentations. Every output keeps the JAX
 package's fixed shapes: `num_segments` is a static capacity, the
 per-segment feature matrix is (S, D) with a validity mask.
 
@@ -10,8 +11,11 @@ SLIC on a CUDA image runs `ops/slic.py::slic`, which hands it to
 `slic_batch` and so to kernel K3; the plain whole-image loop serves CPU
 images only. The stego segmentation is the STEGO interface's per-image
 k-means clusters; in stego × stego mode the features computed while
-segmenting are reused. The other backbones are not ported yet and raise
-`NotImplementedError` naming their ROADMAP.md item.
+segmenting are reused. SIFT (`feature_extractor/sift.py`, 128 per RGB
+channel) and the histogram (`ops/histogram.py`, 90 HSV bins) are dense
+fields computed on the image's device with no weights. The torchvision
+backbones are not ported yet and raise `NotImplementedError` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -23,16 +27,14 @@ import torch
 
 from ..ops import segment_ops
 from ..ops import slic as slic_ops
+from ..ops.histogram import HIST_DIM, dense_color_histogram
 from .dino import DinoInterface
+from .sift import dense_sift_features
 from .stego import StegoInterface
 
 # Feature types of the JAX package that this port does not have yet, with
 # the ROADMAP.md item that brings them.
-_NOT_PORTED_FEATURES = {
-    "torchvision": "Queue 1, item 21",
-    "sift": "Queue 1, item 23",
-    "histogram": "Queue 1, item 23",
-}
+_NOT_PORTED_FEATURES = {"torchvision": "Queue 1, item 21"}
 
 
 @dataclass
@@ -103,6 +105,12 @@ class FeatureExtractor:
                 seed=seed,
             )
             self._feature_dim = self._extractor.feature_dim
+        elif feature_type == "sift":
+            self._extractor = None
+            self._feature_dim = 384  # 128 per RGB channel
+        elif feature_type == "histogram":
+            self._extractor = None
+            self._feature_dim = HIST_DIM
         elif feature_type == "none":
             self._extractor = None
             self._feature_dim = 0
@@ -176,6 +184,10 @@ class FeatureExtractor:
 
     def compute_features(self, img: torch.Tensor) -> Optional[torch.Tensor]:
         """(1, 3, H, W) -> (D, H, W) dense features (None for "none")."""
+        if self._feature_type == "sift":
+            return dense_sift_features(img[0])
+        if self._feature_type == "histogram":
+            return dense_color_histogram(img[0])
         if self._extractor is None:
             return None
         if self._feature_type == "stego":
@@ -224,7 +236,7 @@ def static_feature_dim(feature_type: str, backbone_type: str = "vit_small", mode
     if feature_type == "sift":
         return 384  # 128 per RGB channel
     if feature_type == "histogram":
-        return 10 * 3 * 3  # hue x saturation x value bins
+        return HIST_DIM  # hue x saturation x value bins
     raise ValueError(feature_type)
 
 

@@ -91,42 +91,59 @@ def segment_centers(seg: torch.Tensor, num_segments: int):
 def adjacency_list(seg: torch.Tensor, num_segments: int, max_edges: int = 512):
     """Undirected 4-neighbourhood adjacency of segments, fixed size.
 
-    Returns edges (2, max_edges) int32 and edge_valid (max_edges,) bool:
+    seg (H, W) or a batch (B, H, W) -> edges (2, max_edges) int32 and
+    edge_valid (max_edges,) bool, or (B, 2, max_edges) and (B, max_edges):
     valid pair keys `a + b·(S+1)` first, in ascending order, truncated
     to the smallest keys, then padding. S <= 256 counts a co-occurrence
-    matrix; larger S dedups pair keys with `torch.unique`."""
+    matrix per image; larger S dedups pair keys with `torch.unique` over
+    the batch at once."""
+    if seg.ndim == 2:
+        edges, valid = adjacency_list(seg[None], num_segments, max_edges)
+        return edges[0], valid[0]
     S = num_segments
     div = S + 1
     if div * div > _INT32_MAX:
         raise ValueError(f"adjacency_list supports at most 46339 segments (got {S})")
+    B = seg.shape[0]
+    dev = seg.device
     s = seg.to(torch.int64)
-    pairs = [(s[:, :-1], s[:, 1:]), (s[:-1, :], s[1:, :])]
+    pairs = [(s[:, :, :-1], s[:, :, 1:]), (s[:, :-1, :], s[:, 1:, :])]
     if S <= 256:
-        # pair counts; out-of-range ids land in a spare last slot
-        m = torch.zeros(S * S + 1, dtype=torch.int64, device=seg.device)
+        # pair counts per image; out-of-range ids land in a spare last slot
+        base = (torch.arange(B, device=dev) * (S * S))[:, None, None]
+        m = torch.zeros(B * S * S + 1, dtype=torch.int64, device=dev)
         for a, b in pairs:
             ok = (a >= 0) & (a < S) & (b >= 0) & (b < S)
-            idx = torch.where(ok, a * S + b, S * S).reshape(-1)
+            idx = torch.where(ok, base + a * S + b, B * S * S).reshape(-1)
             m.index_add_(0, idx, torch.ones_like(idx))
-        m = m[: S * S].reshape(S, S)
-        m = m + m.T
-        m.fill_diagonal_(0)
-        ai = torch.arange(S, device=seg.device)[:, None]
-        bi = torch.arange(S, device=seg.device)[None, :]
-        keys = torch.where(m > 0, ai + bi * div, _INT32_MAX).reshape(-1)
-        keys = torch.sort(keys).values[:max_edges]
+        m = m[: B * S * S].reshape(B, S, S)
+        m = m + m.transpose(1, 2)
+        m.diagonal(dim1=1, dim2=2).zero_()
+        ai = torch.arange(S, device=dev)[:, None]
+        bi = torch.arange(S, device=dev)[None, :]
+        keys = torch.where(m > 0, ai + bi * div, _INT32_MAX).reshape(B, -1)
+        keys = torch.sort(keys, dim=-1).values[:, :max_edges]
+        if keys.shape[1] < max_edges:
+            keys = torch.cat([keys, torch.full((B, max_edges - keys.shape[1]), _INT32_MAX, dtype=keys.dtype,
+                                               device=dev)], dim=1)
     else:
+        img = torch.arange(B, device=dev)[:, None, None].expand_as(s)
         found = []
         for a, b in pairs:
             d = (a != b) & (a >= 0) & (b >= 0)
-            found += [(a + b * div)[d], (b + a * div)[d]]
-        keys = torch.unique(torch.cat(found))[:max_edges]
-    if keys.numel() < max_edges:
-        keys = torch.cat([keys, torch.full((max_edges - keys.numel(),), _INT32_MAX, dtype=keys.dtype, device=keys.device)])
+            owner = img[:, : a.shape[1], : a.shape[2]][d]
+            found += [torch.stack([owner, (a + b * div)[d]], 1), torch.stack([owner, (b + a * div)[d]], 1)]
+        u = torch.unique(torch.cat(found), dim=0)  # (image, key) rows, sorted by image, then by key
+        owner, key = u[:, 0], u[:, 1]
+        counts = torch.bincount(owner, minlength=B)
+        pos = torch.arange(u.shape[0], device=dev) - (torch.cumsum(counts, 0) - counts)[owner]
+        keep = pos < max_edges
+        keys = torch.full((B, max_edges), _INT32_MAX, dtype=torch.int64, device=dev)
+        keys[owner[keep], pos[keep]] = key[keep]
     valid = keys < _INT32_MAX
     le = torch.where(valid, keys % div, 0)
     ri = torch.where(valid, keys // div, 0)
-    return torch.stack([le, ri]).to(torch.int32), valid
+    return torch.stack([le, ri], dim=1).to(torch.int32), valid
 
 
 @functools.lru_cache(maxsize=32)

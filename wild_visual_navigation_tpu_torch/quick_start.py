@@ -3,11 +3,12 @@
 Runs the per-frame path that the runtime serves over a folder of images —
 or, without --image_folder, over the frames of
 assets/sequences/demo_mission.npz — and writes side-by-side
-(input | traversability | confidence) PNGs. Two paths:
-runtime/fused.py::build_fused_frame_fn (DINO backbone, SLIC or grid
-segments) and ::build_fused_stego_frame_fn (stego features and segments:
-ViT-B/8, the STEGO head, k-means clusters); both score per pixel or per
-segment. `--config` applies YAML node-parameter profiles, e.g. the Jackal
+(input | traversability | confidence) PNGs, drawn with visu/'s
+LearningVisualizer. Three paths: runtime/fused.py::build_fused_frame_fn
+(DINO backbone, SLIC or grid segments), ::build_fused_stego_frame_fn
+(stego features and segments: ViT-B/8, the STEGO head, k-means clusters),
+and the FeatureExtractor facade for dense SIFT (SLIC, grid or pixel-wise
+segments); each scores per pixel or per segment. `--config` applies YAML node-parameter profiles, e.g. the Jackal
 robot's STEGO path:
 
     python -m wild_visual_navigation_tpu_torch.quick_start \
@@ -90,35 +91,58 @@ def _frames(args):
             for p in paths]
 
 
-def _overlay(base: np.ndarray, value: np.ndarray, alpha: float = 0.6) -> np.ndarray:
-    """(H, W, 3) image with a red (0) to green (1) map blended over it."""
-    v = np.clip(value, 0.0, 1.0)[..., None]
-    color = np.concatenate([1.0 - v, v, np.zeros_like(v)], axis=-1)
-    return (1.0 - alpha) * base + alpha * color
+def _sift_frame(fe, mlp, cg_cfg, H: int, W: int, per_pixel: bool):
+    """frame(cg_state, img) through the facade: dense SIFT, its segments,
+    the head scored per pixel or per segment."""
+    from types import SimpleNamespace
+
+    from .ops.resize import resize_image
+    from .runtime.fused import _score_rows
+
+    def frame(cg_state, img):
+        ex = fe.extract(resize_image(img, H, None if H == W else W), return_dense_features=per_pixel)
+        if per_pixel:
+            trav, conf = _score_rows(mlp, cg_cfg, cg_state, ex.dense_features.reshape(fe.feature_dim, -1).T)
+            return SimpleNamespace(traversability=trav.reshape(H, W), confidence=conf.reshape(H, W))
+        trav, conf = _score_rows(mlp, cg_cfg, cg_state, ex.features)
+        sid = ex.segments.long().clamp(0, ex.features.shape[0] - 1)
+        return SimpleNamespace(traversability=trav[sid], confidence=conf[sid])
+
+    return frame
 
 
 def main(argv=None):
     args = parse_args(argv)
     stego = (args.feature_type, args.segmentation_type) == ("stego", "stego")
-    if not stego and (args.segmentation_type not in ("slic", "grid") or args.feature_type not in ("dino", "dinov2")):
-        raise SystemExit("the torch port serves dino/dinov2 features with slic or grid segments, and stego features "
-                         "with stego segments (other modes: ROADMAP.md Queue 1, Slice 4)")
+    sift = args.feature_type == "sift"
+    if sift and args.segmentation_type not in ("slic", "grid", "none"):
+        raise SystemExit("sift features go with slic, grid or none (pixel-wise) segments")
+    if not (stego or sift) and (args.segmentation_type not in ("slic", "grid")
+                                or args.feature_type not in ("dino", "dinov2")):
+        raise SystemExit("the torch port serves dino/dinov2 features with slic or grid segments, stego features "
+                         "with stego segments and sift features (torchvision: ROADMAP.md Queue 1, item 21)")
     import torch
     from PIL import Image
 
     from .feature_extractor.dino import DinoInterface
+    from .feature_extractor.feature_extractor import FeatureExtractor
     from .feature_extractor.stego import StegoInterface
     from .models.registry import get_model
     from .ops.resize import resize_image
     from .runtime.fused import build_fused_frame_fn, build_fused_stego_frame_fn
     from .utils.confidence_generator import ConfidenceConfig, confidence_init
     from .utils.params import confidence_state_from_jax, load_head_npz, mlp_state_from_jax
+    from .visu import LearningVisualizer
 
     H, W = args.network_input_image_height, args.network_input_image_width
     device = torch.device(args.device)
     if stego:
         backbone = StegoInterface(input_size=H, device=device, seed=0)
         D = 90
+    elif sift:
+        backbone = FeatureExtractor(segmentation_type=args.segmentation_type, feature_type="sift", input_size=H,
+                                    slic_num_components=args.slic_num_components, device=device)
+        D = backbone.feature_dim
     else:
         backbone = DinoInterface(backbone=args.feature_type, input_size=H, backbone_type=args.dino_backbone,
                                  patch_size=args.dino_patch_size, device=device, seed=0)
@@ -137,7 +161,9 @@ def main(argv=None):
         cg_state = confidence_state_from_jax(cg, device)
         print(f"loaded head {args.ckpt} (step {step})")
     mlp.eval().requires_grad_(False)
-    if stego:
+    if sift:
+        frame = _sift_frame(backbone, mlp, ConfidenceConfig(std_factor=0.5), H, W, args.prediction_per_pixel)
+    elif stego:
         frame = build_fused_stego_frame_fn(backbone, mlp, ConfidenceConfig(std_factor=0.5), H,
                                            prediction_per_pixel=args.prediction_per_pixel,
                                            input_width=None if H == W else W)
@@ -149,6 +175,7 @@ def main(argv=None):
                                      input_width=None if H == W else W)
     os.makedirs(args.output_folder, exist_ok=True)
     frames = _frames(args)[: args.max_frames]
+    visu = LearningVisualizer()
     print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     for i, (name, img) in enumerate(frames):
         x = torch.from_numpy(np.ascontiguousarray(img))[None].to(device)
@@ -158,9 +185,9 @@ def main(argv=None):
         conf = res.confidence.cpu().numpy()
         dt = time.perf_counter() - t0
         base = resize_image(x, H, None if H == W else W)[0].permute(1, 2, 0).cpu().numpy()
-        panels = [base, _overlay(base, trav)]
+        panels = [base, visu.plot_detectron_classification(base, trav, alpha=0.6)]
         if args.compute_confidence:
-            panels.append(_overlay(base, conf))
+            panels.append(visu.plot_detectron_classification(base, conf, alpha=0.6))
         out_path = os.path.join(args.output_folder, f"{name}_{args.model_name}_trav.png")
         Image.fromarray((np.clip(np.concatenate(panels, axis=1), 0, 1) * 255).astype(np.uint8)).save(out_path)
         print(f"[{i + 1}/{len(frames)}] {name}: {dt * 1e3:.1f} ms -> {out_path}")

@@ -11,6 +11,14 @@ frame functions:
     per-image cosine k-means -> code pooling, adjacency and centres at
     patch resolution -> per-pixel (K2) or per-segment scoring
 
+Heads: SimpleMLP / DoubleMLP return [trav || reconstruction], and the
+confidence comes from the reconstruction error; a LinearRnvp (anomaly
+mode) returns {z, log_det, logprob}, its traversability is the calibrated
+flow likelihood and its confidence 1; a SimpleGCN (graph head) scores per
+segment over the frame's segment adjacency, whatever the prediction mode.
+Only a SimpleMLP reconstruction head goes through K2; the others score
+the upsampled features in row bands (`pixelwise_map_rows_chunked`).
+
 The ViT and the head are nn.Modules that carry their weights, so the
 returned `frame(cg_state, img)` takes only what changes between frames.
 A caller that swaps heads while frames run (the runtime's params mailbox)
@@ -24,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.registry import apply_model
+from ..models.registry import apply_model, model_needs_edges
 from ..models.stego_head import cosine_kmeans, kmeans_init_indices
 from ..models.vit import dense_features
 from ..ops import segment_ops
@@ -46,9 +54,15 @@ class FrameResult(NamedTuple):
     centers: torch.Tensor  # (S, 2)
 
 
-def _score_rows(mlp, cg_cfg, cg_state, x):
-    """(N, D) feature rows -> (trav (N,), conf (N,))."""
-    out = apply_model(mlp, x)
+def _score_rows(mlp, cg_cfg, cg_state, x, anomaly: bool = False, edges=None, edge_valid=None):
+    """(N, D) feature rows -> (trav (N,), conf (N,)). In anomaly mode the
+    traversability is the confidence of the flow's negative log-likelihood
+    and the confidence is 1. Graph heads take the frame's adjacency."""
+    out = apply_model(mlp, x, edges, edge_valid)
+    if anomaly:
+        losses = torch.sum(out["logprob"], dim=-1) + out["log_det"]
+        trav = confidence_inference(cg_cfg, cg_state, -losses)
+        return trav, torch.ones_like(trav)
     reco = torch.mean((out[:, 1:] - x.float()) ** 2, dim=-1)
     return out[:, 0], confidence_inference(cg_cfg, cg_state, reco)
 
@@ -67,6 +81,7 @@ def build_fused_frame_fn(
     prediction_per_pixel: bool = True,
     score_at_patch_res: bool = False,
     input_width: int | None = None,
+    anomaly: bool = False,
 ):
     """Returns frame(cg_state, img, head=None) -> FrameResult, with
     frame.frames_batch(cg_state, imgs, head=None) -> FrameResult of
@@ -76,8 +91,8 @@ def build_fused_frame_fn(
     img: (1, 3, H0, W0) in [0, 1], float or uint8. Output maps are
     (input_size, input_width or input_size). Square configs resize the
     smaller edge and centre-crop; rectangular ones resize directly and
-    must be patch-aligned. Anomaly heads (LinearRnvp) are not ported yet
-    (ROADMAP.md Queue 1, item 22)."""
+    must be patch-aligned. `anomaly` scores with a LinearRnvp head: never
+    through K2, per pixel in row bands or per segment."""
     if segmentation_type not in ("slic", "grid"):
         raise ValueError(f"fused path does not support segmentation [{segmentation_type}]")
     H = input_size
@@ -108,20 +123,25 @@ def build_fused_frame_fn(
             centers, _ = segment_ops.segment_centers(seg, S)
         D, Hp, Wp = feat_i.shape
         sid = seg.long().clamp(0, S - 1)
+        if model_needs_edges(mlp):
+            # graph heads score per segment over the frame's adjacency
+            pooled, counts = segment_ops.segment_mean_pool_upsampled(feat_i.float(), seg, S, H, W)
+            t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, anomaly, edges, edge_valid)
+            return FrameResult(t_s[sid], c_s[sid], pooled, counts > 0, seg, edges, edge_valid, centers)
         if score_at_patch_res:
             ph, pw = H // Hp, W // Wp
             pooled, counts = segment_ops.segment_mean_pool(feat_i, seg[ph // 2 :: ph, pw // 2 :: pw][:Hp, :Wp], S)
             if prediction_per_pixel:
-                t_r, c_r = _score_rows(mlp, cg_cfg, cg_state, feat_i.reshape(D, -1).T)
+                t_r, c_r = _score_rows(mlp, cg_cfg, cg_state, feat_i.reshape(D, -1).T, anomaly)
                 trav = interpolate_bilinear(t_r.reshape(1, 1, Hp, Wp), H, W)[0, 0]
                 conf = interpolate_bilinear(c_r.reshape(1, 1, Hp, Wp), H, W)[0, 0]
         else:
             pooled, counts = segment_ops.segment_mean_pool_upsampled(feat_i.float(), seg, S, H, W)
             if prediction_per_pixel and trav is None:
                 trav, conf = pixelwise_map_rows_chunked(
-                    lambda rows: _score_rows(mlp, cg_cfg, cg_state, rows), feat_i[None], H, W)
+                    lambda rows: _score_rows(mlp, cg_cfg, cg_state, rows, anomaly), feat_i[None], H, W)
         if not prediction_per_pixel:
-            t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled)
+            t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, anomaly)
             trav, conf = t_s[sid], c_s[sid]
         return FrameResult(trav, conf, pooled, counts > 0, seg, edges, edge_valid, centers)
 
@@ -131,7 +151,7 @@ def build_fused_frame_fn(
         leading batch axis on every field."""
         mlp = default_mlp if head is None else head
         trav_b = conf_b = None
-        if prediction_per_pixel and not score_at_patch_res and pixelwise_supports(mlp):
+        if prediction_per_pixel and not score_at_patch_res and not anomaly and pixelwise_supports(mlp):
             # Gram per-pixel scorer over the whole batch: one K2 launch
             trav_b, conf_b = pixelwise_score(mlp, feat, H, W, cg_cfg, cg_state)
         outs = [
@@ -218,7 +238,12 @@ def build_fused_stego_frame_fn(
             pooled, counts = segment_ops.segment_mean_pool(code_hw[b], seg_p[b], S)
             edges, edge_valid, centers, _ = segment_ops.upsampled_adjacency_and_centers(seg_p[b], S, H, W,
                                                                                          max_edges=max_edges)
-            if trav_b is not None:
+            if model_needs_edges(mlp):
+                # graph heads: per-segment scoring over the cluster adjacency
+                t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, edges=edges, edge_valid=edge_valid)
+                sid = segs[b].long().clamp(0, S - 1)
+                trav, conf = t_s[sid], c_s[sid]
+            elif trav_b is not None:
                 trav, conf = trav_b[b], conf_b[b]
             elif prediction_per_pixel:
                 trav, conf = pixelwise_map_rows_chunked(lambda rows: _score_rows(mlp, cg_cfg, cg_state, rows),

@@ -39,12 +39,8 @@ from ..models.registry import get_model
 from ..ops.projection import scale_intrinsics
 from ..ops.resize import resize_image
 from ..traversability.nodes import MissionNode
-from ..utils.confidence_generator import (
-    ConfidenceConfig,
-    confidence_inference,
-    confidence_init,
-    confidence_load_state_dict,
-)
+from ..utils.confidence_generator import ConfidenceConfig, confidence_init, confidence_load_state_dict
+from .fused import _score_rows
 from .msgs import ImageFeatures, SystemStateMsg
 from .runtime import WVNRuntime
 from .scheduler import Scheduler
@@ -125,6 +121,7 @@ class FeatureExtractorNode:
             raise ValueError("FeatureExtractorNode does not support SimpleGCN (no edge transport in ImageFeatures); "
                              "use WVNRuntime instead.")
         snake = {"SimpleMLP": "simple_mlp_cfg", "DoubleMLP": "double_mlp_cfg", "LinearRnvp": "linear_rnvp_cfg"}
+        self._anomaly = model_name == "LinearRnvp"
         model_cfg = self.exp.model.to_dict()
         model_cfg[snake[model_name]]["input_size"] = D
         self.model = get_model(model_cfg, device=self._device, generator=torch.Generator().manual_seed(seed + 7))
@@ -138,10 +135,10 @@ class FeatureExtractorNode:
         self._last_ts: Dict[str, float] = {}
 
     def _score(self, x: torch.Tensor):
-        """(N, D) features -> (N,) trav, (N,) confidence."""
-        out = self.model(x)
-        reco = torch.mean((out[:, 1:] - x) ** 2, dim=-1)
-        return out[:, 0], confidence_inference(self.cg_cfg, self.cg_state, reco)
+        """(N, D) features -> (N,) trav, (N,) confidence. A LinearRnvp
+        head (anomaly mode) scores the calibrated flow likelihood, with
+        confidence 1."""
+        return _score_rows(self.model, self.cg_cfg, self.cg_state, x, self._anomaly)
 
     def maybe_reload_weights(self) -> bool:
         """Poll the hot-swap file; reload when the learner's step moved

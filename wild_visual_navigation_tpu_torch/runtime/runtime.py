@@ -5,9 +5,12 @@ the reference's two ROS nodes side by side:
 
   * the inference path: camera frame -> resize -> DINO ViT (K1) and SLIC
     (K3) or grid segmentation, or ViT-B/8 (K1), the STEGO head and k-means
-    clusters -> traversability head scored at every pixel (K2) or per
-    segment -> traversability and confidence maps, plus the frame's
-    features into the mission buffer;
+    clusters, or dense SIFT / colour histograms -> traversability head
+    scored at every pixel (K2 for a SimpleMLP head) or per segment ->
+    traversability and confidence maps, plus the frame's features into
+    the mission buffer. In anomaly mode the head is a LinearRnvp flow and
+    the traversability its calibrated likelihood; a graph head
+    (SimpleGCN) scores per segment over the frame's adjacency;
   * the learning path: supervision reprojection (K4) and the train step
     inside the TraversabilityEstimator, on the caller's thread or on the
     learning thread.
@@ -28,9 +31,8 @@ the frame runs under `no_grad` while the learning thread runs autograd.
 
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
 item: `mesh` and `attach_distributed_trainer` (27), the grid map and
-`get_carrot` (24), int8 backbones and `calibrate_backbone` with them (28),
-the torchvision branch (21), anomaly mode (22) and
-`export_supervision_markers` (Slice 5, visu/).
+`get_carrot` (24), int8 backbones and `calibrate_backbone` with them (28)
+and the torchvision branch (21).
 """
 
 from __future__ import annotations
@@ -50,13 +52,15 @@ import torch
 from ..cfg.experiment import ExperimentParams
 from ..cfg.node_params import FeatureExtractorNodeParams, LearningNodeParams
 from ..feature_extractor.feature_extractor import FeatureExtractor, static_feature_dim, static_num_segments
+from ..models.registry import model_needs_edges
 from ..ops.projection import scale_intrinsics
 from ..ops.resize import resize_image
 from ..supervision.supervision_generator import SupervisionGenerator
 from ..traversability.estimator import TraversabilityEstimator
 from ..traversability.mission_buffer import buffer_insert, buffer_insert_batch_impl
 from ..traversability.nodes import MissionNode, SupervisionNode
-from ..utils.confidence_generator import confidence_inference, confidence_load_state_dict
+from ..utils.confidence_generator import confidence_load_state_dict
+from .fused import _score_rows
 from .scheduler import Scheduler
 from .status import StatusMonitor, SystemEvents
 
@@ -148,19 +152,21 @@ class WVNRuntime:
         build_feature_extractor: bool = True,
         device="cuda",
         backbone_dtype: torch.dtype = torch.bfloat16,
+        sampling_seed: Optional[int] = None,
     ):
         """The JAX runtime's arguments, with `seed` (the backbone's weights)
         in place of its `key`, plus `device` (the card unless the caller
-        asks for the CPU) and `backbone_dtype` (bf16, as the JAX package
-        computes; fp32 for parity tests). `backbone_params` is a state dict
+        asks for the CPU), `backbone_dtype` (bf16, as the JAX package
+        computes; fp32 for parity tests) and `sampling_seed`, the
+        estimator's batch-sampling seed (its default when None): a JAX run
+        that seeds the global np.random after construction replays with
+        that seed here. `backbone_params` is a state dict
         of models/vit.py (utils/params.py::vit_state_from_jax converts a
         JAX one)."""
         if mesh is not None:
             raise _not_ported("a device mesh", "Queue 1, item 27")
         if gridmap_size > 0:
             raise _not_ported("the traversability grid map (gridmap_size > 0)", "Queue 1, item 24")
-        if anomaly_detection:
-            raise _not_ported("anomaly mode", "Queue 1, item 22")
         self._device = torch.device(device)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("WVNRuntime: no CUDA device; pass device='cpu' to run on the CPU")
@@ -228,6 +234,7 @@ class WVNRuntime:
             batch_size=self.exp_params.ablation_data_module.batch_size,
             mode=self.ln_params.mode,
             extraction_store_folder=self.ln_params.extraction_store_folder,
+            anomaly_detection=anomaly_detection,
             buffer_capacity=buffer_capacity,
             num_segments=self._S,
             feature_dim=self._D,
@@ -238,6 +245,7 @@ class WVNRuntime:
             vis_node_index=self.ln_params.vis_node_index,
             supervision_flush_every=supervision_flush_every,
             supervision_resolve_every=supervision_resolve_every,
+            sampling_seed=sampling_seed,
             device=self._device,
         )
         self.supervision_generator = SupervisionGenerator(untraversable_thr=self.ln_params.untraversable_thr)
@@ -273,10 +281,11 @@ class WVNRuntime:
         self.status = StatusMonitor(printer=None)
 
         # Fused frame path (runtime/fused.py): dino backbones with slic or
-        # grid segmentation, and stego x stego; 'none' (pixel-wise) goes composed.
+        # grid segmentation (anomaly mode too), and stego x stego; 'none'
+        # (pixel-wise) goes composed.
         self._fused_frame = None
         dino_fusable = "dino" in fp.feature_type and fp.segmentation_type in ("slic", "grid")
-        stego_fusable = fp.feature_type == "stego" and fp.segmentation_type == "stego"
+        stego_fusable = fp.feature_type == "stego" and fp.segmentation_type == "stego" and not anomaly_detection
         if use_fused and self._W != self._H:
             ps = self.feature_extractor._extractor.vit.cfg.patch_size if dino_fusable or stego_fusable else 1
             if self._H % ps or self._W % ps:
@@ -300,6 +309,7 @@ class WVNRuntime:
                 prediction_per_pixel=fp.prediction_per_pixel,
                 score_at_patch_res=score_at_patch_res,
                 input_width=self._W,
+                anomaly=anomaly_detection,
             )
         elif use_fused and stego_fusable:
             from .fused import build_fused_stego_frame_fn
@@ -380,24 +390,25 @@ class WVNRuntime:
             use_for_training=bool(self.fe_params.camera_topics.get(camera, {}).get("use_for_training", True)),
         )
 
-    def _score(self, head, cg, x: torch.Tensor):
-        """(N, D) rows -> (trav (N,), conf (N,))."""
-        out = head(x)
-        reco = torch.mean((out[:, 1:] - x) ** 2, dim=-1)
-        return out[:, 0], confidence_inference(self.estimator._cg_cfg, cg, reco)
+    def _score(self, head, cg, x: torch.Tensor, edges=None, edge_valid=None):
+        """(N, D) rows -> (trav (N,), conf (N,)); in anomaly mode the
+        traversability is the calibrated flow likelihood and conf is 1."""
+        return _score_rows(head, self.estimator._cg_cfg, cg, x, self.anomaly_detection, edges, edge_valid)
 
     @torch.no_grad()
     def _predict_dense(self, head, cg, dense_feat: torch.Tensor):
-        """(D, H, W) -> per-pixel traversability and confidence."""
+        """(D, H, W) -> per-pixel traversability and confidence (None in
+        anomaly mode, as the JAX runtime returns)."""
         D, H, W = dense_feat.shape
         trav, conf = self._score(head, cg, dense_feat.reshape(D, -1).T.float())
-        return trav.reshape(H, W), conf.reshape(H, W)
+        return trav.reshape(H, W), None if self.anomaly_detection else conf.reshape(H, W)
 
     @torch.no_grad()
-    def _predict_segments(self, head, cg, feat: torch.Tensor, seg: torch.Tensor):
+    def _predict_segments(self, head, cg, feat: torch.Tensor, seg: torch.Tensor, edges=None, edge_valid=None):
         """(S, D) pooled features + (H, W) seg -> per-pixel maps through
-        the segment ids (the reference's per-segment scoring)."""
-        trav_seg, conf_seg = self._score(head, cg, feat.float())
+        the segment ids (the reference's per-segment scoring). Graph heads
+        also take the frame's segment adjacency."""
+        trav_seg, conf_seg = self._score(head, cg, feat.float(), edges, edge_valid)
         sid = seg.long().clamp(0, self._S - 1)
         return trav_seg[sid], conf_seg[sid]
 
@@ -466,7 +477,10 @@ class WVNRuntime:
 
         img_r = resize_image(x, self._H, self._W if self._W != self._H else None)
         ex = self.feature_extractor.extract(img_r, return_dense_features=prediction_per_pixel)
-        if prediction_per_pixel and ex.dense_features is not None:
+        if model_needs_edges(head):
+            # graph heads score per segment over the frame's adjacency
+            trav, conf = self._predict_segments(head, cg, ex.features, ex.segments, ex.edges, ex.edge_valid)
+        elif prediction_per_pixel and ex.dense_features is not None:
             trav, conf = self._predict_dense(head, cg, ex.dense_features)
         else:
             trav, conf = self._predict_segments(head, cg, ex.features, ex.segments)
@@ -643,7 +657,13 @@ class WVNRuntime:
         self.estimator.pause_learning = pause
 
     def export_supervision_markers(self, ply_path: Optional[str] = None, json_path: Optional[str] = None):
-        raise _not_ported("export_supervision_markers (visu/)", "Queue 1, Slice 5")
+        """The driven-footprint ribbon and collision walls as a
+        visu/markers.py::TriangleList, written as PLY and / or JSON when
+        paths are given (the reference's RViz footprint markers)."""
+        from ..visu import export_supervision_markers
+
+        return export_supervision_markers(self.estimator.get_supervision_nodes(), ply_path=ply_path,
+                                          json_path=json_path)
 
     def reset(self):
         self.estimator.reset()

@@ -6,10 +6,8 @@ Equivalent of the reference's postprocessing scripts
 runtime outputs during a mission/replay, store overlay images and a CSV
 of learning curves, then render step plots.
 
-A copy of wild_visual_navigation_tpu/scripts/postprocess_logger.py, but
-for its image panel: the JAX package draws it with visu/ (ROADMAP.md
-Queue 1, Slice 5, not ported yet); here it is the input beside the two
-maps in a red-to-green ramp, in numpy.
+A copy of wild_visual_navigation_tpu/scripts/postprocess_logger.py; the
+image panel is visu/'s `LearningVisualizer.plot_mission_node_prediction`.
 """
 
 from __future__ import annotations
@@ -20,25 +18,6 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
-
-
-def _ramp(m: np.ndarray) -> np.ndarray:
-    """(H, W) in [0, 1] -> (H, W, 3): red at 0, green at 1."""
-    m = np.clip(np.asarray(m, np.float32), 0, 1)
-    return np.stack([1.0 - m, m, np.zeros_like(m)], axis=-1)
-
-
-def prediction_panel(image: np.ndarray, traversability: np.ndarray, confidence: Optional[np.ndarray]) -> np.ndarray:
-    """(3, H, W) or (H, W, 3) image in [0, 1] beside the traversability
-    and confidence maps: (H, 3W, 3) float in [0, 1]."""
-    img = np.asarray(image, np.float32)
-    if img.shape[0] == 3 and img.ndim == 3:
-        img = img.transpose(1, 2, 0)
-    if img.dtype == np.uint8 or img.max() > 1.0:
-        img = img / 255.0
-    tiles = [img, _ramp(traversability)] + ([_ramp(confidence)] if confidence is not None else [])
-    h = min(t.shape[0] for t in tiles)
-    return np.concatenate([t[:h] for t in tiles], axis=1)
 
 
 @dataclass
@@ -64,7 +43,10 @@ class MissionLogger:
                       confidence: Optional[np.ndarray], stamp: float):
         if not self.store_images:
             return
-        panel = prediction_panel(image, traversability, confidence)
+        from ..visu import LearningVisualizer
+
+        visu = LearningVisualizer()
+        panel = visu.plot_mission_node_prediction(image, traversability, confidence)
         from PIL import Image
 
         path = os.path.join(self.folder, "images", f"{self._img_count:06d}_{stamp:.3f}.png")

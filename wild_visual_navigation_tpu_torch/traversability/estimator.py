@@ -11,8 +11,12 @@ device paths, driven by host-side graph bookkeeping:
     one after another in `flush_supervision`, which keeps the sequential
     min-fusion of separate updates.
   * the train step: gather a sampled batch from the mission buffer,
-    confidence-weighted loss, autograd through the head, Adam (the
-    formula of `optax.adam`), and the confidence-state update.
+    confidence-weighted loss (or, in anomaly mode, the LinearRnvp flow's
+    negative log-likelihood over the supervised segments), autograd
+    through the head, Adam (the formula of `optax.adam`), and the
+    confidence-state update. A graph head (SimpleGCN) gets each node's
+    segment adjacency, recomputed from the stored segmentation, and the
+    batch's graphs run as one graph (models/simple_gcn.py::batch_graph).
 
 Mission and supervision graphs gate node insertion by SE(3) distance and
 answer radius queries on the host (numpy); the ring buffer
@@ -31,10 +35,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.registry import apply_model, get_model
+from ..models.registry import apply_model, get_model, model_needs_edges
+from ..models.simple_gcn import batch_graph
 from ..ops.projection import Camera
 from ..ops.rasterize import project_and_render
-from ..ops.segment_ops import segment_masked_mean
+from ..ops.segment_ops import adjacency_list, segment_masked_mean
 from ..utils.confidence_generator import (
     ConfidenceConfig,
     ConfidenceState,
@@ -44,7 +49,7 @@ from ..utils.confidence_generator import (
 )
 from ..utils.data import batch_from_arrays
 from ..utils.locks import TrackedRLock
-from ..utils.loss import AnomalyLossConfig, TraversabilityLossConfig, traversability_loss
+from ..utils.loss import AnomalyLossConfig, TraversabilityLossConfig, anomaly_loss, traversability_loss
 from ..utils.operation_modes import WVNMode
 from .graphs import BaseGraph, DistanceWindowGraph, MaxElementsGraph
 from .mission_buffer import MissionBuffer, buffer_init, buffer_insert
@@ -109,17 +114,15 @@ class TraversabilityEstimator:
         graph_max_elements_factor: the ONLINE mission graph keeps at most
         `factor * buffer_capacity` host nodes (0 = unbounded, the
         reference's behaviour); slot-holding nodes are never evicted.
-        max_edges is the per-node adjacency capacity of graph heads, which
-        are not ported yet; it is kept so the JAX estimator's arguments
-        carry over unchanged."""
-        if anomaly_detection:
-            raise NotImplementedError("anomaly detection needs the LinearRnvp head, which is not ported yet "
-                                      "(ROADMAP.md Queue 1, item 22)")
+        max_edges is the per-node adjacency capacity of graph heads.
+        anomaly_detection trains a LinearRnvp head (`model_cfg`) with
+        `anomaly_loss_cfg`."""
         self._device = torch.device(device)
         self._mode = mode
         self._extraction_store_folder = extraction_store_folder
         self._min_samples_for_training = min_samples_for_training
         self._batch_size = batch_size
+        self._anomaly_detection = anomaly_detection
         self._H, self._W = image_height, image_width
         self._S, self._D = num_segments, feature_dim
         self._max_edges = max_edges  # graph heads only
@@ -142,7 +145,10 @@ class TraversabilityEstimator:
         self._slot_to_node: dict[int, MissionNode] = {}
 
         self._model = get_model(model_cfg, device=self._device, generator=torch.Generator().manual_seed(seed))
-        self._loss_cfg = loss_cfg or TraversabilityLossConfig()
+        if anomaly_detection:
+            self._loss_cfg = anomaly_loss_cfg or AnomalyLossConfig()
+        else:
+            self._loss_cfg = loss_cfg or TraversabilityLossConfig()
         self._cg_cfg: ConfidenceConfig = self._loss_cfg.confidence
         self._lr = lr
         self._optimizer = make_adam(self._model.parameters(), lr)
@@ -427,6 +433,15 @@ class TraversabilityEstimator:
         i = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=self._device)
         return buf.features[i], buf.signal[i], buf.signal_valid[i], buf.feat_valid[i] & buf.valid[i][:, None]
 
+    def _model_res(self, x: torch.Tensor, idx):
+        """The head on the batch's (B·S, D) rows. A graph head scores each
+        node over its own segment adjacency, all nodes in one graph."""
+        if not model_needs_edges(self._model):
+            return apply_model(self._model, x)
+        i = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=self._device)
+        edges, edge_valid = adjacency_list(self._buffer.seg[i], self._S, max_edges=self._max_edges)
+        return apply_model(self._model, x, *batch_graph(edges, edge_valid, self._S))
+
     def make_batch(self, batch_size: Optional[int] = None):
         """Sampled valid nodes' (features, signal, signal_valid, sample_valid)."""
         idx = self.sample_batch_indices(batch_size)
@@ -439,8 +454,12 @@ class TraversabilityEstimator:
         """gather -> loss -> autograd -> Adam -> confidence state."""
         batch = batch_from_arrays(*self._gather(idx))
         self._optimizer.zero_grad(set_to_none=True)
-        res = apply_model(self._model, batch.x)
-        loss, aux, cg2 = traversability_loss(self._loss_cfg, batch, res, self._cg_state)
+        res = self._model_res(batch.x, idx)
+        if self._anomaly_detection:
+            # the flow over the supervised (positively labelled) samples only
+            loss, aux, cg2 = anomaly_loss(self._loss_cfg, res, batch.y_valid & batch.sample_valid, self._cg_state)
+        else:
+            loss, aux, cg2 = traversability_loss(self._loss_cfg, batch, res, self._cg_state)
         loss.backward()
         self._optimizer.step()
         self._cg_state = cg2

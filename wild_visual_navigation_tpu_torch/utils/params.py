@@ -14,6 +14,9 @@ Layout changes:
 
 `stego_head_state_from_jax` converts the STEGO head (models/stego_head.py);
 its ViT-B/8 backbone goes through `vit_state_from_jax` like any ViT.
+`linear_rnvp_state_from_jax` and `simple_gcn_state_from_jax` convert the
+anomaly flow and the graph head; `head_state_from_jax` picks the bridge
+from the tree's layout.
 
 `train_state_from_jax` carries a JAX estimator's whole optimisation
 state (params, optax Adam moments, confidence state, step) into the
@@ -107,6 +110,36 @@ def mlp_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
+def simple_gcn_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax SimpleGCN params (Dense_i) -> models/simple_gcn.py state_dict:
+    its layers are `layers.i`, as SimpleMLP's."""
+    return mlp_state_from_jax(params)
+
+
+def linear_rnvp_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax LinearRnvp params (layers_k / s_net, t_net / Dense_j) ->
+    models/linear_rnvp.py state_dict (layers.k.s_net.layers.j, ...)."""
+    p = _inner(params)
+    sd: dict[str, torch.Tensor] = {}
+    k = 0
+    while f"layers_{k}" in p:
+        for net in ("s_net", "t_net"):
+            if net in p[f"layers_{k}"]:
+                for name, value in mlp_state_from_jax(p[f"layers_{k}"][net]).items():
+                    sd[f"layers.{k}.{net}.{name}"] = value
+        k += 1
+    if not sd:
+        raise ValueError(f"no layers_k in params with keys {sorted(p)}")
+    return sd
+
+
+def head_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Any head's flax params -> its state_dict: LinearRnvp by its
+    layers_k, the others (SimpleMLP, DoubleMLP, SimpleGCN) by their Dense
+    layers."""
+    return linear_rnvp_state_from_jax(params) if "layers_0" in _inner(params) else mlp_state_from_jax(params)
+
+
 def confidence_state_from_jax(cg: Mapping, device=None) -> ConfidenceState:
     """JAX ConfidenceState fields (a dict or the NamedTuple's _asdict())
     -> the port's ConfidenceState."""
@@ -139,7 +172,7 @@ def load_head_npz(path) -> tuple[dict, dict, int]:
 
 def train_state_from_jax(params: Mapping, opt_state, cg_state, step: int, device=None) -> dict:
     """A JAX estimator's numpy training state -> keyword arguments of the
-    port's `TraversabilityEstimator.adopt_train_state`.
+    port's `TraversabilityEstimator.adopt_train_state`, for any head.
 
     opt_state is `optax.adam`'s state (a tuple holding a ScaleByAdamState,
     or that state itself); its `mu` / `nu` trees have the params' layout
@@ -147,11 +180,11 @@ def train_state_from_jax(params: Mapping, opt_state, cg_state, step: int, device
     kernel transposes as the params, and its `count` Adam's `step`."""
     adam = opt_state if hasattr(opt_state, "mu") else next(s for s in opt_state if hasattr(s, "mu"))
     return {
-        "params": mlp_state_from_jax(params),
+        "params": head_state_from_jax(params),
         "adam": {
             "step": int(np.asarray(adam.count)),
-            "exp_avg": mlp_state_from_jax(adam.mu),
-            "exp_avg_sq": mlp_state_from_jax(adam.nu),
+            "exp_avg": head_state_from_jax(adam.mu),
+            "exp_avg_sq": head_state_from_jax(adam.nu),
         },
         "cg_state": confidence_state_from_jax(cg_state, device),
         "step": int(step),
