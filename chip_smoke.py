@@ -43,7 +43,20 @@ PyTorch version at the main path's shapes, and drives these paths:
     against the CPU tail on the card's features; WVNRuntime in anomaly mode
     replaying the mission (K4 1 per flush), its first 20 frames also on the
     CPU; and the demo golden replay (sift on a 64-px grid) on the card held
-    to assets/goldens/demo_mission_replay.npz's own limits.
+    to assets/goldens/demo_mission_replay.npz's own limits;
+  * the torchvision path: the ResNet-18, ResNet-50 and EfficientNet-B4
+    pyramids at 448 in bf16 against fp32 (TF32 off), each through the
+    facade in torchvision x slic mode and the fused torchvision frame at B=1
+    and B=4 (K3 11 launches a call, nothing else), its tail against the CPU;
+    WVNRuntime in torchvision x slic mode at the product's settings (ResNet-18
+    at 224) with a 128 x 0.15 m grid map replaying the mission (K3 11 per
+    accepted frame, K4 1 per flush, K1 and K2 never) and asking for a carrot
+    every second frame, its first 20 frames also on the CPU (grid maps
+    compared cell by cell), image_batch_callback at B=4; the closed-loop
+    obstacle scenario of the JAX package's closed-loop test on the card with
+    that test's checks; and the torchvision frame's, the pyramids', the
+    grid-map update's, image_callback's with and without the grid map, and
+    get_carrot's times.
 
 It checks each path's outputs and that each went through its kernels, and
 times the kernels, the frame, a supervision flush and a train step. It
@@ -62,11 +75,12 @@ the kernels with their launches in the runtime's replay of the mission
 (counts set to 0 just before it, read just after), errors, times and
 bounds (K4's of the fill alone, as the TPU kernel it replaces; its launch
 from points under from_points_* keys), and `stego_launches`,
-`anomaly_launches`, `graph_launches`, `golden_launches` and
-`features_launches`, each kernel's launches in the Jackal runtime's STEGO
-replay, the anomaly runtime's replay, the ten graph frames, the golden
-replay and the facade's sift and histogram extractions (each counted the
-same way). Without a CUDA device, or outside
+`anomaly_launches`, `graph_launches`, `golden_launches`,
+`features_launches`, `torchvision_launches` and `closed_loop_launches`,
+each kernel's launches in the Jackal runtime's STEGO replay, the anomaly
+runtime's replay, the ten graph frames, the golden replay, the facade's
+sift and histogram extractions, the torchvision runtime's replay and the
+closed-loop scenario (each counted the same way). Without a CUDA device, or outside
 the repository, it exits non-zero and prints no result.
 """
 
@@ -1354,6 +1368,322 @@ def modes_phase(dev, card: str, demo, seq_path: Path, size: int = 224) -> dict:
     return out
 
 
+# the torchvision path and the grid map: ResNet-18 / ResNet-50 / EfficientNet-B4 pyramids in bf16 against fp32 (TF32
+# off on both sides), each level's error relative to its largest |value| (the CPU's first reading at 128 px:
+# 4.7e-3 to 1.25e-2; some 8 bf16 units)
+PYRAMID_BF16_REL = 3e-2
+TV_TAIL_MAE = 1e-5  # the torchvision frame against its CPU tail on the card's pyramid and segments
+TV_LOSS_RTOL = 5e-2  # the torchvision runtime's per-step losses, card against CPU (bf16 backbones)
+TV_BATCH_ATOL = 2e-2  # image_batch_callback against single callbacks (cuDNN may pick other algorithms at B=4)
+GRID_TRAV_MAE = 2e-2  # the card's grid map against the CPU's, over the cells valid on both
+GRID_VALID_SHARE = 1e-2  # cells valid on one side only, as a share of those valid on either
+TV_MODELS = ("resnet18", "resnet50", "efficientnet_b4")
+
+
+def make_tv_runtime(dev, gridmap_size: int = 128, like=None):
+    """WVNRuntime in torchvision x slic mode at the product's settings
+    (ResNet-18, SLIC 100 at 224, buffer 256, fan-out 32, backbone seed 0,
+    rates raised for a replay at virtual time) with a 128 x 0.15 m grid map;
+    `like` hands over another such runtime's ResNet-18 weights."""
+    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
+
+    import dataclasses
+
+    fe, ln = runtime_params()
+    fe = dataclasses.replace(fe, feature_type="torchvision")
+    backbone = None
+    if like is not None:
+        backbone = {k: v.cpu() for k, v in like.feature_extractor._extractor.params.items()}
+    return WVNRuntime(fe_params=fe, ln_params=ln, seed=0, buffer_capacity=256, reprojection_fanout=32, device=dev,
+                      gridmap_size=gridmap_size, gridmap_resolution=0.15, backbone_params=backbone)
+
+
+def with_carrots(rt, every: int = 2) -> list:
+    """Ask for a carrot after every `every`-th accepted frame, at the robot's
+    yaw, as a planner polling the grid map would; returns the goals."""
+    goals, callback, accepted = [], rt.image_callback, [0]
+
+    def image_callback(img, stamp, camera, K, h, w, pose_base, pose_cam, *rest):
+        res = callback(img, stamp, camera, K, h, w, pose_base, pose_cam, *rest)
+        if res is not None:
+            accepted[0] += 1
+            if accepted[0] % every == 0:
+                goals.append(rt.get_carrot(yaw=float(np.arctan2(pose_base[1][0], pose_base[0][0])))[0])
+        return res
+
+    rt.image_callback = image_callback
+    return goals
+
+
+def grid_against(a, b) -> tuple[int, int, float]:
+    """(cells valid on one side only, cells valid on either, trav MAE over
+    the cells valid on both) of two grid maps with the same origin."""
+    require(np.array_equal(a.origin_xy, b.origin_xy), "the grid maps share their origin")
+    va, vb = a.valid.cpu().numpy(), b.valid.cpu().numpy()
+    ta, tb = a.traversability.cpu().numpy(), b.traversability.cpu().numpy()
+    both = va & vb
+    return int((va != vb).sum()), int((va | vb).sum()), float(np.abs(ta - tb)[both].mean()) if both.any() else 0.0
+
+
+def seeded_head(D: int, dev, feats):
+    """A seeded SimpleMLP [D -> 256 -> 32 -> 1+D] (the runtime's head shape)
+    with confidence statistics at the scale of its reconstruction error on
+    `feats` (S, D)."""
+    import torch
+
+    from wild_visual_navigation_tpu_torch.models.registry import apply_model, get_model
+    from wild_visual_navigation_tpu_torch.utils.confidence_generator import confidence_init
+
+    cfg = {"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": D, "hidden_sizes": [256, 32, 1],
+                                                   "reconstruction": True}}
+    head = get_model(cfg, device=dev, generator=torch.Generator().manual_seed(3)).eval().requires_grad_(False)
+    with torch.no_grad():
+        reco = ((apply_model(head, feats)[:, 1:] - feats) ** 2).mean(-1)
+    return cfg, head, confidence_init(dev)._replace(mean=reco.mean(), std=reco.std())
+
+
+def torchvision_phase(dev, card: str, demo, seq_path: Path) -> dict:
+    """The torchvision path and the grid map with the smart carrot (ROADMAP.md
+    items 21 and 24): the three pyramids at 448, bf16 against fp32; the facade and
+    the fused torchvision frame at 448 (B=1 and B=4) for each, K3 11 launches
+    a call, the tail against the CPU; the torchvision runtime with its grid
+    map replaying the mission (carrots every second frame) and its first 20
+    frames on the CPU; image_batch_callback B=4; the closed-loop obstacle
+    scenario; and the timings. Returns the runtime replay's and the closed
+    loop's launches, the counts set to 0 just before each and read just after."""
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.feature_extractor.feature_extractor import FeatureExtractor
+    from wild_visual_navigation_tpu_torch.feature_extractor.torchvision_interface import TorchVisionInterface
+    from wild_visual_navigation_tpu_torch.models.registry import get_model
+    from wild_visual_navigation_tpu_torch.ops.resize import imagenet_normalize, resize_image
+    from wild_visual_navigation_tpu_torch.ops.slic import slic_batch
+    from wild_visual_navigation_tpu_torch.runtime import load_sequence, run_replay
+    from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_torchvision_frame_fn
+    from wild_visual_navigation_tpu_torch.runtime.obstacle_scenario import build_runtime, run_obstacle_scenario
+    from wild_visual_navigation_tpu_torch.runtime.replay import Sequence
+    from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig
+
+    out = {}
+    cg_cfg = ConfidenceConfig(std_factor=0.5)
+    k3_only = {"flash_attention": 0, "pixelwise_score": 0, "slic_step": 11, "fill_hulls": 0}
+    img448 = torch.from_numpy(np.repeat(np.repeat(demo[20:21], 7, 2), 7, 3)).to(dev)  # 64 -> 448
+
+    # 1. each pyramid at 448: bf16 against fp32, the facade and the fused frame, the tail against the CPU
+    for mt in TV_MODELS:
+        fp32 = TorchVisionInterface(mt, device=dev, dtype=torch.float32, seed=0)
+        bf16 = TorchVisionInterface(mt, device=dev, params=fp32.params)  # bf16, the path's type
+        x = torch.rand((WARMUP + N_TIMED, 1, 3, 448, 448), device=dev)
+        with torch.no_grad():
+            lv32, lv16 = fp32.inference(x[0]), bf16.inference(x[0])
+        errs = {k: float((lv16[k] - lv32[k]).abs().max() / lv32[k].abs().max()) for k in lv32}
+        finite = all(bool(torch.isfinite(v).all()) for v in lv16.values())
+        shapes = {k: tuple(v.shape[1:]) for k, v in lv16.items()}
+        xs = [(imagenet_normalize(x[i]),) for i in range(len(x))]
+        with torch.no_grad():
+            ms16 = device_ms(bf16.model, xs)
+            ms32 = device_ms(fp32.model, xs)
+            # hundreds of launches outlast the sleep kernel ahead of each run, so the events also count the host's
+            # enqueue: the profiler's sum of kernels is the device time
+            prof16 = profile_calls(bf16.model, xs[:5])
+        print(f"[torchvision] {mt} at 448 ({sum(p.numel() for p in fp32.model.parameters()) / 1e6:.1f} M weights, "
+              f"levels {shapes}, {bf16.feature_dim}-d pyramid): bf16 against fp32 (TF32 off), max abs error over each "
+              f"level's largest |value|: {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (tol "
+              f"{PYRAMID_BF16_REL:.0e}); finite {finite}", flush=True)
+        print(f"[time] {mt} pyramid at 448, B=1, CUDA events: bf16 {ms16:.4f} ms, fp32 {ms32:.4f} ms; bf16 under the "
+              f"profiler: device kernels {prof16[1]:.4f} ms, {prof16[2]:.0f} launches per call | {card}", flush=True)
+        require(finite and all(e <= PYRAMID_BF16_REL for e in errs.values()), f"{mt}: bf16 against fp32")
+        del fp32, lv32, x, xs
+
+        fe = FeatureExtractor(seed=0, segmentation_type="slic", feature_type="torchvision", input_size=448,
+                              device=dev, model_type=mt, backbone_params=bf16.params)
+        torch.cuda.synchronize()
+        port.reset_launch_counts()
+        ex = fe.extract(img448)
+        torch.cuda.synchronize()
+        counts_fe = port.launch_counts()
+        require(counts_fe == k3_only, f"{mt}: the facade's torchvision x slic launches K3 11 times: {counts_fe}")
+        require(tuple(ex.features.shape) == (100, bf16.feature_dim) and bool(torch.isfinite(ex.features).all()),
+                f"{mt}: the facade's pooled features")
+        cfg, head, cg = seeded_head(bf16.feature_dim, dev, ex.features)
+        frame = build_fused_torchvision_frame_fn(bf16, head, cg_cfg, 448)
+        launches = {}
+        for B in (1, 4):
+            imgs = torch.from_numpy(np.repeat(np.repeat(demo[20:20 + B], 7, 2), 7, 3)).to(dev)
+            torch.cuda.synchronize()
+            port.reset_launch_counts()
+            res = frame.frames_batch(cg, imgs)
+            torch.cuda.synchronize()
+            launches[B] = port.launch_counts()
+            require(launches[B] == k3_only, f"{mt}: the fused frame at B={B} launches K3 11 times: {launches[B]}")
+            require(tuple(res.traversability.shape) == (B, 448, 448) and all(
+                bool(torch.isfinite(m).all()) and float(m.min()) >= 0 and float(m.max()) <= 1
+                for m in (res.traversability, res.confidence)), f"{mt}: the fused frame's maps at B={B}")
+        with torch.no_grad():
+            x = resize_image(imgs.float() / 255.0 if imgs.dtype == torch.uint8 else imgs, 448, 448)
+            pyr, segs = bf16.model(imagenet_normalize(x)), slic_batch(x)
+        card_tail = frame.tail(cg, pyr, segs)
+        head_cpu = get_model(cfg).eval().requires_grad_(False)
+        head_cpu.load_state_dict({k: v.cpu() for k, v in head.state_dict().items()})
+        cpu_tail = build_fused_torchvision_frame_fn(bf16, head_cpu, cg_cfg, 448).tail(
+            type(cg)(*(t.cpu() for t in cg)), {k: v.cpu() for k, v in pyr.items()}, segs.cpu())
+        t_mae = float((card_tail.traversability.cpu() - cpu_tail.traversability).abs().mean())
+        c_mae = float((card_tail.confidence.cpu() - cpu_tail.confidence).abs().mean())
+        f_diff = float((card_tail.features.cpu() - cpu_tail.features).abs().max())
+        print(f"[torchvision] {mt} at 448: the facade (torchvision x slic) launched {counts_fe}; the fused frame at "
+              f"B=1 launched {launches[1]}, at B=4 {launches[4]}; B=4 tail against the CPU tail on the card's pyramid "
+              f"and segments: trav MAE {t_mae:.3e}, conf MAE {c_mae:.3e} (tol {TV_TAIL_MAE:.0e}), pooled features max "
+              f"abs diff {f_diff:.3e}", flush=True)
+        require(t_mae <= TV_TAIL_MAE and c_mae <= TV_TAIL_MAE, f"{mt}: the fused frame's tail against the CPU")
+        del fe, bf16, frame, pyr, card_tail, cpu_tail
+
+    # 2. the torchvision runtime with its grid map replaying the mission, a carrot every second frame
+    sequence = load_sequence(str(seq_path))
+    rt = make_tv_runtime(dev)
+    require(rt._fused_frame is not None and rt._D == 960 and rt.gridmap is not None,
+            "the torchvision runtime fuses its frame and keeps a grid map")
+    goals = with_carrots(rt)
+    t0 = time.perf_counter()
+    rep, losses, counts = replay_runtime(rt, sequence)
+    replay_s = time.perf_counter() - t0
+    n = max(rep.frames_processed, 1)
+    per = {k: counts[k] / n for k in ("flash_attention", "pixelwise_score", "slic_step")}
+    k4 = counts["fill_hulls"] / max(rep.supervision_updates, 1)
+    chosen = [g for g in goals if g is not None]
+    valid_cells = int(rt.gridmap.valid.sum())
+    print(f"[torchvision runtime] WVNRuntime torchvision x slic (ResNet-18 at 224, SLIC 100, head [960, 256, 32, "
+          f"1+960], grid map 128 x 0.15 m), run_replay of {len(sequence.frames)} frames + {len(sequence.states)} robot "
+          f"states in {replay_s:.2f} s: {rep.frames_processed} frames processed, {rep.supervision_updates} supervision "
+          f"updates, {rep.train_steps} train steps, {rep.valid_nodes} valid nodes; losses read back, first "
+          f"{[round(x, 5) for x in losses[:3]]}, last {[round(x, 5) for x in losses[-3:]]}; launches {counts}: per "
+          f"accepted frame K1 {per['flash_attention']:.2f}, K2 {per['pixelwise_score']:.2f}, K3 {per['slic_step']:.2f};"
+          f" per flush K4 {k4:.2f}; grid map {valid_cells} valid cells, origin {rt.gridmap.origin_xy.tolist()}; "
+          f"{len(goals)} carrots asked, {len(chosen)} chosen, last {goals[-1] if goals else None}", flush=True)
+    require(rep.frames_processed == len(sequence.frames), "every torchvision frame accepted")
+    require(per == {"flash_attention": 0, "pixelwise_score": 0, "slic_step": 11} and k4 == 1,
+            "K1 0, K2 0, K3 11 per accepted torchvision frame and K4 1 per flush")
+    require(rep.supervision_updates > 0 and rep.train_steps > 0 and rep.valid_nodes >= 5 and len(losses) > 0
+            and all(np.isfinite(losses)), "the torchvision mission learns with finite losses")
+    require(valid_cells > 100 and len(goals) == len(sequence.frames) // 2 and len(chosen) > 0,
+            "the grid map fills and yields carrots")
+    trav, conf = rep.last_result.to_numpy()
+    require(trav.shape == (224, 224) and np.isfinite(trav).all() and np.isfinite(conf).all()
+            and trav.min() >= 0 and trav.max() <= 1, "the last torchvision frame's maps")
+    out["torchvision_launches"] = counts
+
+    # its first 20 frames on the card and on the CPU
+    last = sequence.frames[19].stamp
+    head20 = Sequence(frames=sequence.frames[:20], states=[s for s in sequence.states if s.stamp <= last])
+    runs = {}
+    for d in (dev, "cpu"):
+        r = make_tv_runtime(d, like=rt)
+        step_losses = record_train_losses(r)
+        t0 = time.perf_counter()
+        rp = run_replay(r, head20)
+        runs[str(d)] = (r, rp, [float(x) for x in step_losses], time.perf_counter() - t0)
+    (r_k, rp_k, l_k, _), (r_c, rp_c, l_c, cpu_s) = runs[str(dev)], runs["cpu"]
+    occupied = r_k.estimator.buffer.valid.cpu()
+    m_k, m_c = r_k.estimator.buffer.supervision_mask.cpu()[occupied], r_c.estimator.buffer.supervision_mask[occupied]
+    mask_differ = int((m_k != m_c).sum())
+    loss_diff = max((abs(a - b) / abs(b) for a, b in zip(l_k, l_c)), default=float("nan"))
+    same = all(getattr(rp_k, f) == getattr(rp_c, f) for f in
+               ("frames_processed", "supervision_updates", "train_steps", "valid_nodes"))
+    one_side, either, g_mae = grid_against(r_k.gridmap, r_c.gridmap)
+    print(f"[torchvision runtime] the first 20 frames on the card and on the CPU ({cpu_s:.1f} s): counts equal {same} "
+          f"({rp_c.frames_processed} frames, {rp_c.supervision_updates} updates, {rp_c.train_steps} steps, "
+          f"{rp_c.valid_nodes} valid nodes); supervision masks differ in {mask_differ} of {m_k.numel()} pixels (must "
+          f"be 0); per-step losses max relative difference {loss_diff:.3e} (tol {TV_LOSS_RTOL}); grid maps: "
+          f"{one_side} of {either} cells valid on one side only (tol {GRID_VALID_SHARE:.0%}), trav MAE over the "
+          f"cells valid on both {g_mae:.3e} (tol {GRID_TRAV_MAE:.0e})", flush=True)
+    require(same and rp_k.train_steps > 0 and len(l_k) == len(l_c) == rp_k.train_steps, "the same counts on the CPU")
+    require(mask_differ == 0 and loss_diff <= TV_LOSS_RTOL, "masks and losses agree with the CPU replay")
+    require(one_side <= GRID_VALID_SHARE * either and g_mae <= GRID_TRAV_MAE, "the grid map agrees with the CPU's")
+    del runs, r_k, r_c
+
+    # 3. image_batch_callback at B=4 against four image_callbacks, grid maps included
+    seq = dict(np.load(seq_path))
+    rt_b, rt_s = make_tv_runtime(dev, like=rt), make_tv_runtime(dev, like=rt)
+    idx = np.arange(4)
+    port.reset_launch_counts()
+    batch = rt_b.image_batch_callback(seq["frame_images"][idx], seq["frame_stamps"][idx], ["front"] * 4,
+                                      seq["frame_K"][idx], 64, 64, seq["frame_pose"][idx], seq["frame_cam_in_base"][idx])
+    torch.cuda.synchronize()
+    batch_counts = port.launch_counts()
+    singles = [rt_s.image_callback(seq["frame_images"][i], float(seq["frame_stamps"][i]), "front", seq["frame_K"][i],
+                                   64, 64, seq["frame_pose"][i], seq["frame_cam_in_base"][i]) for i in idx]
+    t_diff = max(float((b.traversability - s.traversability).abs().max()) for b, s in zip(batch, singles))
+    c_diff = max(float((b.confidence - s.confidence).abs().max()) for b, s in zip(batch, singles))
+    one_side_b, either_b, g_mae_b = grid_against(rt_b.gridmap, rt_s.gridmap)
+    print(f"[torchvision runtime] image_batch_callback B=4 against 4 image_callbacks: trav max abs diff {t_diff:.3e}, "
+          f"conf {c_diff:.3e} (tol {TV_BATCH_ATOL:.0e}); grid maps {one_side_b} of {either_b} cells valid on one side "
+          f"only, trav MAE {g_mae_b:.3e}; the batch launched {batch_counts}", flush=True)
+    require(batch_counts == k3_only and t_diff <= TV_BATCH_ATOL and c_diff <= TV_BATCH_ATOL
+            and one_side_b <= GRID_VALID_SHARE * either_b and g_mae_b <= GRID_TRAV_MAE,
+            "the batched torchvision callback agrees with single callbacks")
+    del rt_b, rt_s
+
+    # 4. the closed-loop obstacle scenario (the JAX package's closed-loop test, sift x grid at 64 px)
+    torch.cuda.synchronize()
+    port.reset_launch_counts()
+    t0 = time.perf_counter()
+    sc = run_obstacle_scenario(build_runtime(dev))
+    torch.cuda.synchronize()
+    loop_counts = port.launch_counts()
+    print(f"[closed loop] obstacle scenario on the card in {time.perf_counter() - t0:.2f} s: crossed at x = "
+          f"{sc['crossed_x']:.3f} m (min 3.2) after {sc['train_steps']} train steps (min 101), least supervision signal "
+          f"{sc['min_signal']:.3f} (max 0.4); rebuilt grid map: obstacle cell {sc['obstacle_trav']:.3f}, clean cell "
+          f"{sc['clean_trav']:.3f} (at least 0.15 apart); carrot {sc['carrot']}; closed loop {sc['loop_ticks']} ticks, "
+          f"{sc['loop_goals']} carrots chosen; checks {sc['checks']}; launches {loop_counts}", flush=True)
+    require(all(sc["checks"].values()), f"the closed-loop scenario's checks: {sc['checks']}")
+    require(loop_counts["fill_hulls"] > 0 and loop_counts["flash_attention"] == loop_counts["pixelwise_score"]
+            == loop_counts["slic_step"] == 0, "the closed loop launched K4 (sift x grid: no K1-K3)")
+    out["closed_loop_launches"] = loop_counts
+
+    # 5. timings: the frame, frames_batch, image_callback with and without the grid map, the grid-map update, get_carrot
+    frame = rt._fused_frame
+    head, cg = rt.inference_head
+    frames_1 = [(cg, torch.from_numpy(demo[i % 50 : i % 50 + 1]).to(dev), head) for i in range(WARMUP + N_TIMED)]
+    lat1 = wall_ms(frame, frames_1)
+    prof = profile_calls(frame, frames_1[:10])
+    batches = [(cg, torch.from_numpy(demo[np.arange(i, i + 4) % 50]).to(dev), head) for i in range(WARMUP + N_TIMED)]
+    lat4 = wall_ms(frame.frames_batch, batches)
+    print(f"[time] torchvision frame B=1 (64x64 demo frame -> 224, ResNet-18, SLIC 100, per segment): {lat1:.3f} ms on "
+          f"the host clock; under the profiler {prof[0]:.3f} ms per frame, device kernels {prof[1]:.3f} ms, "
+          f"{prof[2]:.0f} launches per frame, busy share {prof[3]:.3f} | {card}", flush=True)
+    print(f"[time] torchvision frames_batch B=4: {lat4:.3f} ms ({lat4 / 4:.3f} ms per frame) | {card}", flush=True)
+    profile_frames(lambda c, x: frame(c, x, head), cg, demo, dev, card, tag="torchvision profile")
+
+    rt_g, rt_n = make_tv_runtime(dev, like=rt), make_tv_runtime(dev, gridmap_size=0, like=rt)
+    times = {"grid": [], "none": []}
+    for i in range(WARMUP + N_TIMED):
+        for name, r in (("none", rt_n), ("grid", rt_g)) if i % 2 else (("grid", rt_g), ("none", rt_n)):
+            j = i % 50
+            t0 = time.perf_counter()
+            r.image_callback(seq["frame_images"][j], 100.0 + i, "front", seq["frame_K"][j], 64, 64,
+                             seq["frame_pose"][j], seq["frame_cam_in_base"][j])
+            torch.cuda.synchronize()
+            if i >= WARMUP:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    res_g = rt_g.image_callback(seq["frame_images"][0], 1000.0, "front", seq["frame_K"][0], 64, 64,
+                                seq["frame_pose"][0], seq["frame_cam_in_base"][0])
+    K0 = rt_g._scale_K(seq["frame_K"][0], 64, 64)
+    upd = [(res_g.traversability, res_g.confidence, K0, seq["frame_pose"][j] @ seq["frame_cam_in_base"][j],
+            seq["frame_pose"][j]) for j in range(WARMUP + N_TIMED)]
+    lat_upd = wall_ms(rt_g._update_gridmap, upd)
+    lat_carrot = wall_ms(rt_g.get_carrot, [(0.1 * i,) for i in range(WARMUP + N_TIMED)])
+    prof_carrot = profile_calls(rt_g.get_carrot, [(0.0,)] * 5)
+    print(f"[time] torchvision image_callback B=1, interleaved over {N_TIMED} calls each: with the grid map "
+          f"{statistics.median(times['grid']):.3f} ms, without {statistics.median(times['none']):.3f} ms (medians) | "
+          f"{card}", flush=True)
+    print(f"[time] grid-map update alone (recentre + project 224x224 at stride 2 into 128x128): {lat_upd:.3f} ms on "
+          f"the host clock | {card}", flush=True)
+    print(f"[time] get_carrot (SDF, 2 x 64 relaxations on 128x128, one copy to the host, select_carrot): "
+          f"{lat_carrot:.3f} ms on the host clock; under the profiler {prof_carrot[1]:.3f} ms of device kernels, "
+          f"{prof_carrot[2]:.0f} launches per call | {card}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1667,6 +1997,11 @@ def main() -> int:
             "the graph frames launched K1 and K3")
     require(modes["golden_launches"]["fill_hulls"] > 0, "the golden replay launched K4")
 
+    # ---- 4g. the torchvision path; the grid map and the smart carrot; the closed-loop obstacle scenario
+    tv = torchvision_phase(dev, card, demo, ROOT / "assets/sequences/demo_mission.npz")
+    require(tv["torchvision_launches"]["slic_step"] > 0 and tv["torchvision_launches"]["fill_hulls"] > 0,
+            "the torchvision replay launched K3 and K4")
+
     # ---- 5. timings (device time from CUDA events; frame latency on the host clock)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape, what in ATTN_SHAPES.items():
@@ -1790,7 +2125,9 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": f"wild_visual_navigation_tpu_torch/csrc/{src}",
                 "replaces": rep, "launches": launches[name], **results[name], "stego_launches": stego_launches[name],
                 "anomaly_launches": modes["anomaly_launches"][name], "graph_launches": modes["graph_launches"][name],
-                "golden_launches": modes["golden_launches"][name], "features_launches": features_launches[name]}
+                "golden_launches": modes["golden_launches"][name], "features_launches": features_launches[name],
+                "torchvision_launches": tv["torchvision_launches"][name],
+                "closed_loop_launches": tv["closed_loop_launches"][name]}
                for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -170,17 +170,19 @@ def test_static_helpers_match_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(feature_type="torchvision"), "item 21"),
+    (dict(feature_type="torchvision"), None),
     (dict(feature_type="sift"), None),
     (dict(feature_type="histogram"), None),
     (dict(quant="int8_static"), "item 28"),
 ], ids=["torchvision", "sift", "histogram", "int8"])
 def test_unported_options_name_their_roadmap_item(kw, item):
     """What is not ported raises naming its ROADMAP.md item; sift and
-    histogram (item 23) are ported and build with their feature dims."""
+    histogram (item 23) are ported and build with their feature dims, and
+    torchvision (item 21) with its ResNet-18 pyramid (960 channels)."""
     if item is None:
         fe = tfe_mod.FeatureExtractor(device="cpu", input_size=SIZE, **kw)
-        assert fe.feature_dim == jfe_mod.static_feature_dim(kw["feature_type"]) and fe._extractor is None
+        assert fe.feature_dim == jfe_mod.static_feature_dim(kw["feature_type"])
+        assert (fe._extractor is None) == (kw["feature_type"] != "torchvision")
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
         tfe_mod.FeatureExtractor(device="cpu", input_size=SIZE, **kw)

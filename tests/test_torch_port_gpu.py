@@ -638,3 +638,148 @@ def test_golden_replay_on_the_card(cuda):
     assert out["ok"], out
     assert counts["fill_hulls"] == out["flushes"] > 0
     assert counts["flash_attention"] == counts["slic_step"] == counts["pixelwise_score"] == 0
+
+
+# ---------------------------------------------------------------- torchvision and the grid map
+
+# the CNN pyramids at 448 in bf16 against the same weights in fp32 (TF32 off),
+# each level's max abs error over its largest |value| (the CPU's reading at 128
+# px: 4.7e-3 to 1.25e-2, some 3 bf16 units; chip_smoke.py holds the same 3e-2)
+PYRAMID_BF16_REL = 3e-2
+
+
+@pytest.mark.parametrize("model_type", ["resnet18", "resnet50", "efficientnet_b4"])
+def test_pyramid_bf16_against_fp32_on_the_card(cuda, model_type):
+    from wild_visual_navigation_tpu_torch.feature_extractor.torchvision_interface import TorchVisionInterface
+
+    fp32 = TorchVisionInterface(model_type, device=cuda, dtype=torch.float32, seed=0)
+    bf16 = TorchVisionInterface(model_type, device=cuda, params=fp32.params)
+    x = torch.rand((2, 3, 448, 448), device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    want, got = fp32.inference(x), bf16.inference(x)
+    for k, w in want.items():
+        assert got[k].dtype == torch.float32 and got[k].shape == w.shape
+        assert float((got[k] - w).abs().max()) <= PYRAMID_BF16_REL * float(w.abs().max()), k
+
+
+def test_torchvision_frame_launches_and_matches_the_cpu_tail(cuda):
+    """The fused torchvision frame (ResNet-18 at 224, SLIC 100): K3 11
+    launches at B=1 and at B=4, nothing else; the maps within 1e-5 MAE of the
+    CPU tail fed the card's pyramid and segmentation."""
+    from wild_visual_navigation_tpu_torch.feature_extractor.torchvision_interface import TorchVisionInterface
+    from wild_visual_navigation_tpu_torch.models.registry import get_model
+    from wild_visual_navigation_tpu_torch.ops.resize import imagenet_normalize, resize_image
+    from wild_visual_navigation_tpu_torch.ops.slic import slic_batch
+    from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_torchvision_frame_fn
+    from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig, confidence_init
+
+    tvi = TorchVisionInterface("resnet18", input_size=224, device=cuda, seed=0)
+    cfg = {"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": 960, "hidden_sizes": [256, 32, 1],
+                                                   "reconstruction": True}}
+    head = get_model(cfg, device=cuda, generator=torch.Generator().manual_seed(2)).eval()
+    cg = confidence_init(cuda)._replace(mean=torch.tensor(1.0, device=cuda), std=torch.tensor(0.5, device=cuda))
+    frame = build_fused_torchvision_frame_fn(tvi, head, ConfidenceConfig(), 224)
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (4, 3, 240, 320), dtype=np.uint8)).to(cuda)
+    for B in (1, 4):
+        port.reset_launch_counts()
+        res = frame.frames_batch(cg, imgs[:B])
+        torch.cuda.synchronize()
+        assert port.launch_counts() == {"flash_attention": 0, "pixelwise_score": 0, "slic_step": 11, "fill_hulls": 0}
+        assert res.traversability.shape == (B, 224, 224) and res.features.shape == (B, 100, 960)
+    with torch.no_grad():
+        x = resize_image(imgs.float() / 255.0, 224, 224)
+        pyr, segs = tvi.model(imagenet_normalize(x)), slic_batch(x)
+    got = frame.tail(cg, pyr, segs)
+    head_cpu = get_model(cfg).eval()
+    head_cpu.load_state_dict({k: v.cpu() for k, v in head.state_dict().items()})
+    ref = build_fused_torchvision_frame_fn(tvi, head_cpu, ConfidenceConfig(), 224).tail(
+        type(cg)(*(t.cpu() for t in cg)), {k: v.cpu() for k, v in pyr.items()}, segs.cpu())
+    for name in ("traversability", "confidence"):
+        m = getattr(got, name)
+        assert bool(torch.isfinite(m).all()) and float(m.min()) >= 0 and float(m.max()) <= 1
+        assert float((m.cpu() - getattr(ref, name)).abs().mean()) <= 1e-5
+
+
+def _tv_runtime(cuda, gridmap_size=128):
+    from wild_visual_navigation_tpu_torch.cfg.node_params import FeatureExtractorNodeParams, LearningNodeParams
+    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
+
+    fe = FeatureExtractorNodeParams(image_callback_rate=1e9, feature_type="torchvision")
+    ln = LearningNodeParams(supervision_callback_rate=1e9, min_samples_for_training=0)
+    return WVNRuntime(fe_params=fe, ln_params=ln, seed=0, device=cuda, gridmap_size=gridmap_size,
+                      gridmap_resolution=0.15)
+
+
+def test_torchvision_runtime_callbacks_launch_each_kernel(cuda):
+    """WVNRuntime in torchvision x slic mode at the product's settings with a
+    128 x 0.15 m grid map: each accepted frame launches K3 11 times and
+    nothing else, each flush K4 once; the grid map fills on the card and
+    yields a carrot."""
+    from pathlib import Path
+
+    rt = _tv_runtime(cuda)
+    assert rt._fused_frame is not None and rt.gridmap.weight.is_cuda
+    seq = np.load(Path(__file__).resolve().parent.parent / "assets/sequences/demo_mission.npz")
+    flushes = 0
+    for i in range(8):
+        port.reset_launch_counts()
+        res = rt.image_callback(seq["frame_images"][i], float(seq["frame_stamps"][i]), "front", seq["frame_K"][i],
+                                64, 64, seq["frame_pose"][i], seq["frame_cam_in_base"][i])
+        torch.cuda.synchronize()
+        assert port.launch_counts() == {"flash_attention": 0, "pixelwise_score": 0, "slic_step": 11, "fill_hulls": 0}
+        trav, conf = res.to_numpy()
+        assert trav.shape == (224, 224) and np.isfinite(trav).all() and np.isfinite(conf).all()
+        port.reset_launch_counts()
+        flushed = rt.robot_state_callback(float(seq["state_stamps"][i]), seq["state_pose"][i], seq["state_twist"][i],
+                                          seq["state_desired"][i])
+        torch.cuda.synchronize()
+        assert port.launch_counts()["fill_hulls"] == int(flushed)
+        flushes += int(flushed)
+        rt.learning_step()
+    assert flushes > 0 and rt.estimator.step > 0
+    assert int(rt.gridmap.valid.sum()) > 100
+    goal, score = rt.get_carrot(yaw=0.0)
+    assert score.shape == (128, 128) and (goal is None or np.isfinite(goal).all())
+
+
+def test_gridmap_on_the_card_matches_the_cpu(cuda):
+    """Recentre and fuse on the card and on the CPU from the same maps: the
+    same origins, the same cells valid (a ray on a cell edge may move, none
+    expected), sums within 1e-5 (the card's scatter adds with atomics in no
+    fixed order); the SDF of one grid is the same bit for bit on both."""
+    from wild_visual_navigation_tpu_torch.ops import gridmap as tg
+
+    rng = np.random.default_rng(0)
+    K = torch.tensor([[60.0, 0, 112], [0, 60.0, 112], [0, 0, 1]])
+    grids = {d: tg.gridmap_init(128, 0.15, device=d) for d in ("cpu", cuda)}
+    for step in range(6):
+        a = np.deg2rad(30.0 + 5 * step)
+        z, x = np.array([np.cos(a), 0.0, -np.sin(a)]), np.array([0.0, -1.0, 0.0])
+        pose = np.eye(4)
+        pose[:3, :3] = np.stack([x, np.cross(z, x), z], 1)
+        pose[:3, 3] = [0.3 * step, 0.1 * step, 1.2]
+        trav, conf = (torch.from_numpy(rng.random((224, 224), dtype=np.float32)) for _ in range(2))
+        for d in grids:
+            g = tg.gridmap_recenter(grids[d], pose[:2, 3])
+            grids[d] = tg.project_traversability_to_grid(g, trav.to(d), K.to(d), pose, confidence=conf.to(d))
+    c, k = grids["cpu"], grids[cuda]
+    np.testing.assert_array_equal(k.origin_xy, c.origin_xy)
+    assert int((k.valid.cpu() != c.valid).sum()) <= 2 and int(c.valid.sum()) > 1000
+    both = k.valid.cpu() & c.valid
+    torch.testing.assert_close(k.value_sum.cpu()[both], c.value_sum[both], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k.weight.cpu()[both], c.weight[both], rtol=1e-5, atol=1e-5)
+    sdf_k = tg.traversability_sdf(k.traversability, k.valid, resolution=0.15).cpu()
+    sdf_c = tg.traversability_sdf(k.traversability.cpu(), k.valid.cpu(), resolution=0.15)
+    assert torch.equal(sdf_k, sdf_c)
+
+
+def test_obstacle_scenario_on_the_card(cuda):
+    """The JAX package's closed-loop obstacle scenario on the card, held to
+    that test's checks; it launches K4 (flushes) and no other kernel."""
+    from wild_visual_navigation_tpu_torch.runtime.obstacle_scenario import build_runtime, run_obstacle_scenario
+
+    port.reset_launch_counts()
+    out = run_obstacle_scenario(build_runtime(cuda))
+    torch.cuda.synchronize()
+    counts = port.launch_counts()
+    assert all(out["checks"].values()), out
+    assert counts["fill_hulls"] > 0 and counts["flash_attention"] == counts["slic_step"] == 0

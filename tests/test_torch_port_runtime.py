@@ -457,22 +457,30 @@ def _anomaly_runtime():
 
 @pytest.mark.parametrize("build,item", [
     (lambda: WVNRuntime(**_runtime_kw(False), mesh=object()), "item 27"),
-    (lambda: WVNRuntime(**_runtime_kw(False), gridmap_size=64), "item 24"),
+    (lambda: WVNRuntime(**_runtime_kw(False), gridmap_size=64), None),
     (lambda: _anomaly_runtime(), None),
-    (lambda: WVNRuntime(**_runtime_kw(True, feature_type="torchvision")), "item 21"),
+    (lambda: WVNRuntime(**_runtime_kw(True, feature_type="torchvision")), None),
     (lambda: WVNRuntime(**_runtime_kw(True, dino_quant="int8")), "item 28"),
     (lambda: WVNRuntime(**_runtime_kw(False)).attach_distributed_trainer(), "item 27"),
-    (lambda: WVNRuntime(**_runtime_kw(False)).get_carrot(), "item 24"),
+    (lambda: WVNRuntime(**_runtime_kw(False)).get_carrot(), None),
     (lambda: WVNRuntime(**_runtime_kw(False, dino_quant="int8")).calibrate_backbone([]), "item 28"),
     (lambda: WVNRuntime(**_runtime_kw(False)).export_supervision_markers(), None),
 ], ids=["mesh", "gridmap", "anomaly", "torchvision", "int8", "distributed", "carrot", "calibrate", "markers"])
 def test_unported_options_raise_naming_their_item(build, item):
     """What is not ported raises naming its ROADMAP.md item; anomaly mode
-    (item 22) and the supervision markers (item 23) are ported and run."""
+    (item 22), the supervision markers (item 23), the torchvision branch
+    (item 21) and the grid map with its carrot (item 24) are ported and run."""
     if item is None:
         out = build()
-        if isinstance(out, WVNRuntime):
-            assert out.anomaly_detection and type(out.estimator.model).__name__ == "LinearRnvp"
+        if isinstance(out, WVNRuntime) and out.anomaly_detection:
+            assert type(out.estimator.model).__name__ == "LinearRnvp"
+        elif isinstance(out, WVNRuntime) and out.gridmap is not None:  # a 64 x 64 grid of 0.1 m around the origin
+            assert tuple(out.gridmap.weight.shape) == (64, 64) and not bool(out.gridmap.valid.any())
+            np.testing.assert_array_equal(out.gridmap.origin_xy, np.float32([-3.2, -3.2]))
+        elif isinstance(out, WVNRuntime):  # torchvision x grid: the fused CNN-pyramid frame
+            assert out._fused_frame is not None and out._D == 960
+        elif isinstance(out, tuple):  # no grid map: no carrot
+            assert out == (None, None)
         else:  # no robot state yet: an empty ribbon
             assert out.num_triangles == 0 and out.points.shape == (0, 3)
         return

@@ -1,8 +1,8 @@
 """FeatureExtractor facade: image -> (edges, features, segments, centers).
 
 Port of wild_visual_navigation_tpu/feature_extractor/feature_extractor.py
-for the DINO / DINOv2 and STEGO backbones, dense SIFT and the colour
-histogram, and the slic, grid, none (pixel-wise), random and stego
+for the DINO / DINOv2, STEGO and torchvision (ResNet, EfficientNet)
+backbones, dense SIFT and the colour histogram, and the slic, grid, none (pixel-wise), random and stego
 segmentations. Every output keeps the JAX
 package's fixed shapes: `num_segments` is a static capacity, the
 per-segment feature matrix is (S, D) with a validity mask.
@@ -14,8 +14,10 @@ k-means clusters; in stego × stego mode the features computed while
 segmenting are reused. SIFT (`feature_extractor/sift.py`, 128 per RGB
 channel) and the histogram (`ops/histogram.py`, 90 HSV bins) are dense
 fields computed on the image's device with no weights. The torchvision
-backbones are not ported yet and raise `NotImplementedError` naming their
-ROADMAP.md item.
+features are a CNN pyramid (feature_extractor/torchvision_interface.py:
+ResNet-18 unless `model_type` says otherwise), pooled per segment over
+its levels (ops/segment_ops.py::segment_pyramid_pool); that mode has no
+dense per-pixel field.
 """
 
 from __future__ import annotations
@@ -25,16 +27,14 @@ from typing import Optional
 
 import torch
 
+from ..models.resnet import pyramid_feature_dim
 from ..ops import segment_ops
 from ..ops import slic as slic_ops
 from ..ops.histogram import HIST_DIM, dense_color_histogram
 from .dino import DinoInterface
 from .sift import dense_sift_features
 from .stego import StegoInterface
-
-# Feature types of the JAX package that this port does not have yet, with
-# the ROADMAP.md item that brings them.
-_NOT_PORTED_FEATURES = {"torchvision": "Queue 1, item 21"}
+from .torchvision_interface import TorchVisionInterface
 
 
 @dataclass
@@ -64,9 +64,6 @@ class FeatureExtractor:
         random segmentation) in place of its `key`, and `device`. Extra
         keyword `dtype` sets the backbone's compute type (bf16 by default,
         as in the JAX package)."""
-        if feature_type in _NOT_PORTED_FEATURES:
-            raise NotImplementedError(f"feature_type [{feature_type}] is not ported to torch yet "
-                                      f"(ROADMAP.md {_NOT_PORTED_FEATURES[feature_type]})")
         if segmentation_type == "stego" and feature_type != "stego":
             raise ValueError(f"segmentation_type [stego] needs feature_type [stego] (got [{feature_type}])")
         if kwargs.get("quant") is not None:
@@ -100,6 +97,16 @@ class FeatureExtractor:
                 patch_size=kwargs.get("patch_size", 8 if feature_type == "dino" else 14),
                 params=kwargs.get("backbone_params"),
                 attention_impl=kwargs.get("attention_impl") or "flash",
+                dtype=kwargs.get("dtype", torch.bfloat16),
+                device=self.device,
+                seed=seed,
+            )
+            self._feature_dim = self._extractor.feature_dim
+        elif feature_type == "torchvision":
+            self._extractor = TorchVisionInterface(
+                model_type=kwargs.get("model_type", "resnet18"),
+                input_size=input_size,
+                params=kwargs.get("backbone_params"),
                 dtype=kwargs.get("dtype", torch.bfloat16),
                 device=self.device,
                 seed=seed,
@@ -182,8 +189,12 @@ class FeatureExtractor:
         centers, center_valid = segment_ops.segment_centers(seg, S)
         return edges, edge_valid, seg, centers, center_valid
 
-    def compute_features(self, img: torch.Tensor) -> Optional[torch.Tensor]:
-        """(1, 3, H, W) -> (D, H, W) dense features (None for "none")."""
+    def compute_features(self, img: torch.Tensor):
+        """(1, 3, H, W) -> (D, H, W) dense features (None for "none"); for
+        torchvision the level dict {name: (C_i, H_i, W_i)}, which `extract`
+        pools across levels."""
+        if self._feature_type == "torchvision":
+            return {k: v[0] for k, v in self._extractor.inference(img).items()}
         if self._feature_type == "sift":
             return dense_sift_features(img[0])
         if self._feature_type == "histogram":
@@ -213,7 +224,11 @@ class FeatureExtractor:
         H, W = img.shape[2], img.shape[3]
         edges, edge_valid, seg, centers, center_valid = self.compute_segments(img, generator)
         dense = self.compute_features(img)
-        if dense is None:
+        if isinstance(dense, dict):
+            # the CNN pyramid: per-segment pooling across levels
+            feat, _ = segment_ops.segment_pyramid_pool(dense, seg, self.num_segments(H, W))
+            dense = None
+        elif dense is None:
             feat = None
         elif self._segmentation_type in ("none", None):
             feat = dense.reshape(dense.shape[0], -1).T  # (HW, D)
@@ -231,8 +246,7 @@ def static_feature_dim(feature_type: str, backbone_type: str = "vit_small", mode
     if feature_type in ("dino", "dinov2"):
         return {"vit_tiny": 192, "vit_small": 384, "vit_base": 768, "vit_large": 1024}[backbone_type]
     if feature_type == "torchvision":
-        # the four pyramid stages of the JAX package's models/resnet.py
-        return 64 + 128 + 256 + 512 if model_type == "resnet18" else 256 + 512 + 1024 + 2048
+        return pyramid_feature_dim(model_type)
     if feature_type == "sift":
         return 384  # 128 per RGB channel
     if feature_type == "histogram":

@@ -14,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from .resize import bilinear_matrix
+from .resize import _nearest_indices, bilinear_matrix
 
 _INT32_MAX = 2**31 - 1
 
@@ -239,6 +239,31 @@ def grid_constants(height: int, width: int, cell_size: int, num_segments: int, m
 def segment_pixelwise(height: int, width: int, device=None) -> torch.Tensor:
     """Pixel-wise segmentation: every pixel its own id, (H, W) int32."""
     return torch.arange(height * width, dtype=torch.int32, device=device).reshape(height, width)
+
+
+def segment_pyramid_pool(pyramid: dict, seg: torch.Tensor, num_segments: int):
+    """Multiscale per-segment pooling over a CNN feature pyramid.
+
+    Level by level, in sorted key order: the segmentation is
+    nearest-downsampled to the level's resolution (resize.py's index rule)
+    and the features mean-pooled per segment; a segment that vanished at a
+    level takes the feature at its centroid (truncated to int, then
+    clipped). The levels are concatenated along channels.
+
+    pyramid: {name: (C_i, H_i, W_i)}; seg: (H, W) -> ((S, sum C_i), (S,) valid)."""
+    H, W = seg.shape
+    centers, seg_valid = segment_centers(seg, num_segments)  # (S, 2) in (x, y)
+    feats = []
+    for name in sorted(pyramid):
+        f = pyramid[name]
+        C, Hi, Wi = f.shape
+        seg_i = seg[_nearest_indices(Hi, H, seg.device)][:, _nearest_indices(Wi, W, seg.device)]
+        pooled, counts = segment_mean_pool(f, seg_i, num_segments)  # (S, C)
+        cx = (centers[:, 0] * (Wi / W)).to(torch.int32).clamp(0, Wi - 1).long()
+        cy = (centers[:, 1] * (Hi / H)).to(torch.int32).clamp(0, Hi - 1).long()
+        fallback = f[:, cy, cx].T.float()  # (S, C)
+        feats.append(torch.where((counts > 0)[:, None], pooled, fallback))
+    return torch.cat(feats, dim=-1), seg_valid
 
 
 def pixelwise_edges(height: int, width: int, device=None) -> torch.Tensor:

@@ -119,8 +119,8 @@ def main(argv=None):
         raise SystemExit("sift features go with slic, grid or none (pixel-wise) segments")
     if not (stego or sift) and (args.segmentation_type not in ("slic", "grid")
                                 or args.feature_type not in ("dino", "dinov2")):
-        raise SystemExit("the torch port serves dino/dinov2 features with slic or grid segments, stego features "
-                         "with stego segments and sift features (torchvision: ROADMAP.md Queue 1, item 21)")
+        raise SystemExit("the quick start serves dino/dinov2 features with slic or grid segments, stego features "
+                         "with stego segments and sift features, as the JAX quick start does")
     import torch
     from PIL import Image
 

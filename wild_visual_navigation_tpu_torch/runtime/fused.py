@@ -1,7 +1,7 @@
 """Per-frame inference: segmentation + backbone + pooling + head.
 
-Port of wild_visual_navigation_tpu/runtime/fused.py, its DINO and STEGO
-frame functions:
+Port of wild_visual_navigation_tpu/runtime/fused.py, its DINO, STEGO and
+torchvision frame functions:
 
     image -> resize / normalise -> ViT dense features (K1 in every block)
     -> SLIC (K3) or grid segmentation -> per-segment pooling, adjacency
@@ -10,6 +10,10 @@ frame functions:
     image -> resize / normalise -> ViT-B/8 (K1) -> STEGO code head ->
     per-image cosine k-means -> code pooling, adjacency and centres at
     patch resolution -> per-pixel (K2) or per-segment scoring
+
+    image -> resize / normalise -> ResNet or EfficientNet pyramid -> SLIC
+    (K3) or grid segmentation -> multiscale per-segment pooling ->
+    per-segment scoring, gathered over the segmentation
 
 Heads: SimpleMLP / DoubleMLP return [trav || reconstruction], and the
 confidence comes from the reconstruction error; a LinearRnvp (anomaly
@@ -67,6 +71,32 @@ def _score_rows(mlp, cg_cfg, cg_state, x, anomaly: bool = False, edges=None, edg
     return out[:, 0], confidence_inference(cg_cfg, cg_state, reco)
 
 
+def _segmentation(segmentation_type: str, H: int, W: int, S: int, slic_compactness: float, slic_iterations: int,
+                  cell_size: int, max_edges: int):
+    """SLIC (K3 on the card) or the fixed grid: segments(x) for a (B, 3, H, W)
+    batch -> (B, H, W) ids, and graph(seg) for one (H, W) segmentation ->
+    (edges, edge_valid, centers); the grid's graph is built once."""
+    if segmentation_type == "slic":
+        def segments(x):
+            return slic_batch(x, num_components=S, compactness=slic_compactness, iterations=slic_iterations)
+
+        def graph(seg):
+            edges, edge_valid = segment_ops.adjacency_list(seg, S, max_edges=max_edges)
+            return edges, edge_valid, segment_ops.segment_centers(seg, S)[0]
+
+        return segments, graph
+    grid_graph = segment_ops.grid_constants(H, W, cell_size, S, max_edges=max_edges)
+
+    def segments(x):
+        return segment_ops.segment_grid(H, W, cell_size, device=x.device)[None].expand(x.shape[0], H, W)
+
+    def graph(seg):
+        edges, edge_valid, centers, _ = (t.to(seg.device) for t in grid_graph)
+        return edges, edge_valid, centers
+
+    return segments, graph
+
+
 def build_fused_frame_fn(
     vit,
     mlp,
@@ -102,25 +132,13 @@ def build_fused_frame_fn(
         raise ValueError(f"rectangular fused config must be patch-aligned: {H}x{W} with patch {ps}")
     S = num_segments
     default_mlp = mlp
-
-    def _segments(x):
-        if segmentation_type == "slic":
-            return slic_batch(x, num_components=S, compactness=slic_compactness, iterations=slic_iterations)
-        grid = segment_ops.segment_grid(H, W, cell_size, device=x.device)
-        return grid[None].expand(x.shape[0], H, W)
-
-    grid_graph = None
-    if segmentation_type == "grid":
-        grid_graph = segment_ops.grid_constants(H, W, cell_size, S, max_edges=max_edges)
+    _segments, _graph = _segmentation(segmentation_type, H, W, S, slic_compactness, slic_iterations, cell_size,
+                                      max_edges)
 
     def _one(mlp, cg_state, feat_i, seg, trav=None, conf=None):
         """Per-image tail. feat_i (D, Hp, Wp); seg (H, W); trav / conf
         are given when the batch was scored per pixel already."""
-        if grid_graph is not None:
-            edges, edge_valid, centers, _ = (t.to(seg.device) for t in grid_graph)
-        else:
-            edges, edge_valid = segment_ops.adjacency_list(seg, S, max_edges=max_edges)
-            centers, _ = segment_ops.segment_centers(seg, S)
+        edges, edge_valid, centers = _graph(seg)
         D, Hp, Wp = feat_i.shape
         sid = seg.long().clamp(0, S - 1)
         if model_needs_edges(mlp):
@@ -262,6 +280,73 @@ def build_fused_stego_frame_fn(
             imgs = imgs.float() / 255.0
         out = stego.vit(imagenet_normalize(resize_image(imgs, H, W)))
         return tail(cg_state, stego.head(out["patch_tokens"])["code"], head)
+
+    def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
+        return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))
+
+    frame.frames_batch = frames_batch
+    frame.tail = tail
+    return frame
+
+
+def build_fused_torchvision_frame_fn(
+    tvi,
+    mlp,
+    cg_cfg: ConfidenceConfig,
+    input_size: int,
+    segmentation_type: str = "slic",
+    num_segments: int = 100,
+    slic_compactness: float = 10.0,
+    slic_iterations: int = 10,
+    cell_size: int = 32,
+    max_edges: int = 1024,
+    input_width: int | None = None,
+):
+    """The CNN-pyramid frame: returns frame(cg_state, img, head=None) ->
+    FrameResult, with frame.frames_batch(cg_state, imgs, head=None) (the
+    pyramid and SLIC once on the batch, then the per-image tail) and
+    frame.tail(cg_state, pyramid, segs, head=None) for a level dict of
+    (B, C_i, H_i, W_i) and (B, H, W) segmentations.
+
+    `tvi` is a feature_extractor/torchvision_interface.py::TorchVisionInterface.
+    The mode is per segment by construction (the reference's multiscale
+    sparsify path): the maps are the per-segment scores gathered over the
+    segmentation. Any rectangle works: the convolutions pad."""
+    if segmentation_type not in ("slic", "grid"):
+        raise ValueError(f"fused torchvision path does not support segmentation [{segmentation_type}]")
+    H = input_size
+    W = input_width or input_size
+    S = num_segments
+    model = tvi.model
+    default_mlp = mlp
+    _segments, _graph = _segmentation(segmentation_type, H, W, S, slic_compactness, slic_iterations, cell_size,
+                                      max_edges)
+
+    def _one(mlp, cg_state, pyr_i, seg):
+        """Per-image tail: multiscale pooling and scoring over the
+        segmentation. pyr_i: {name: (C_i, H_i, W_i)}."""
+        edges, edge_valid, centers = _graph(seg)
+        pooled, seg_valid = segment_ops.segment_pyramid_pool(pyr_i, seg, S)
+        t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, False, edges, edge_valid)
+        sid = seg.long().clamp(0, S - 1)
+        return FrameResult(t_s[sid], c_s[sid], pooled, seg_valid, seg, edges, edge_valid, centers)
+
+    @torch.no_grad()
+    def tail(cg_state: ConfidenceState, pyramid: dict, segs: torch.Tensor, head=None) -> FrameResult:
+        """pyramid {name: (B, C_i, H_i, W_i)}, segs (B, H, W) -> FrameResult
+        with a leading batch axis on every field."""
+        mlp = default_mlp if head is None else head
+        outs = [_one(mlp, cg_state, {k: v[b] for k, v in pyramid.items()}, segs[b]) for b in range(segs.shape[0])]
+        return FrameResult(*(torch.stack(field) for field in zip(*outs)))
+
+    @torch.no_grad()
+    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
+        """(B, 3, H0, W0) -> FrameResult with a leading batch axis; the
+        pyramid and the segmentation each run once on the batch."""
+        if imgs.dtype == torch.uint8:
+            imgs = imgs.float() / 255.0
+        x = resize_image(imgs, H, W)
+        return tail(cg_state, model(imagenet_normalize(x)), _segments(x), head)
 
     def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
         return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))

@@ -12,9 +12,9 @@ nontrivial traversability signal end-to-end (BASELINE config 4).
 
 Port of wild_visual_navigation_tpu/runtime/replay.py: numpy plus the
 port's WVNRuntime. The maps of `ReplayReport.last_result` stay on the
-runtime's device; read them with `InferenceResult.to_numpy`. The port has
-no grid map yet (ROADMAP.md item 24), so `run_closed_loop` drives without
-carrots, as the JAX version does for a runtime without one.
+runtime's device; read them with `InferenceResult.to_numpy`. With a grid
+map (`WVNRuntime(gridmap_size > 0)`) `run_closed_loop` steers by the
+carrot `get_carrot` picks; without one it drives its initial command.
 """
 
 from __future__ import annotations

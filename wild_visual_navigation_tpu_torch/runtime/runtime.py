@@ -5,12 +5,16 @@ the reference's two ROS nodes side by side:
 
   * the inference path: camera frame -> resize -> DINO ViT (K1) and SLIC
     (K3) or grid segmentation, or ViT-B/8 (K1), the STEGO head and k-means
-    clusters, or dense SIFT / colour histograms -> traversability head
-    scored at every pixel (K2 for a SimpleMLP head) or per segment ->
-    traversability and confidence maps, plus the frame's features into
-    the mission buffer. In anomaly mode the head is a LinearRnvp flow and
-    the traversability its calibrated likelihood; a graph head
-    (SimpleGCN) scores per segment over the frame's adjacency;
+    clusters, or a ResNet-18 pyramid (cuDNN convolutions) pooled per
+    segment over SLIC (K3) or the grid, or dense SIFT / colour histograms
+    -> traversability head scored at every pixel (K2 for a SimpleMLP
+    head) or per segment -> traversability and confidence maps, plus the
+    frame's features into the mission buffer. In anomaly mode the head is
+    a LinearRnvp flow and the traversability its calibrated likelihood; a
+    graph head (SimpleGCN) scores per segment over the frame's adjacency;
+    with `gridmap_size > 0` each frame's maps are also fused into a
+    robot-centric grid map (ops/gridmap.py), from which `get_carrot`
+    picks the local goal (scripts/smart_carrot.py);
   * the learning path: supervision reprojection (K4) and the train step
     inside the TraversabilityEstimator, on the caller's thread or on the
     learning thread.
@@ -30,9 +34,8 @@ the estimator's lock orders them on the host. Grad mode is thread-local:
 the frame runs under `no_grad` while the learning thread runs autograd.
 
 Not ported yet, and raising NotImplementedError naming their ROADMAP.md
-item: `mesh` and `attach_distributed_trainer` (27), the grid map and
-`get_carrot` (24), int8 backbones and `calibrate_backbone` with them (28)
-and the torchvision branch (21).
+item: `mesh` and `attach_distributed_trainer` (27), int8 backbones and
+`calibrate_backbone` with them (28).
 """
 
 from __future__ import annotations
@@ -53,8 +56,10 @@ from ..cfg.experiment import ExperimentParams
 from ..cfg.node_params import FeatureExtractorNodeParams, LearningNodeParams
 from ..feature_extractor.feature_extractor import FeatureExtractor, static_feature_dim, static_num_segments
 from ..models.registry import model_needs_edges
+from ..ops.gridmap import gridmap_init, gridmap_recenter, project_traversability_to_grid, traversability_sdf
 from ..ops.projection import scale_intrinsics
 from ..ops.resize import resize_image
+from ..scripts.smart_carrot import CarrotConfig, select_carrot
 from ..supervision.supervision_generator import SupervisionGenerator
 from ..traversability.estimator import TraversabilityEstimator
 from ..traversability.mission_buffer import buffer_insert, buffer_insert_batch_impl
@@ -165,8 +170,6 @@ class WVNRuntime:
         JAX one)."""
         if mesh is not None:
             raise _not_ported("a device mesh", "Queue 1, item 27")
-        if gridmap_size > 0:
-            raise _not_ported("the traversability grid map (gridmap_size > 0)", "Queue 1, item 24")
         self._device = torch.device(device)
         if self._device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("WVNRuntime: no CUDA device; pass device='cpu' to run on the CPU")
@@ -186,8 +189,6 @@ class WVNRuntime:
         fp = self.fe_params
         self._H = fp.network_input_image_height
         self._W = fp.network_input_image_width
-        if fp.feature_type == "torchvision" and build_feature_extractor:
-            raise _not_ported("the torchvision branch", "Queue 1, item 21")
 
         # --- feature extraction (the inference process's half). Without it
         # (the learning node's role) shapes come from the static helpers.
@@ -267,7 +268,12 @@ class WVNRuntime:
         self.hot_swap()
         self.hot_swaps = 0
 
-        self.gridmap = None  # the rolling grid map is ROADMAP.md item 24
+        # --- the optional rolling grid map (the consumer-side fusion that
+        # elevation_mapping_cupy performs for the reference), on this device
+        self.gridmap = None
+        self._gridmap_resolution = gridmap_resolution
+        if gridmap_size > 0:
+            self.gridmap = gridmap_init(size=gridmap_size, resolution=gridmap_resolution, device=self._device)
         self.system_state = SystemState()
         self.anomaly_detection = anomaly_detection
         self._stop_event = threading.Event()
@@ -281,11 +287,14 @@ class WVNRuntime:
         self.status = StatusMonitor(printer=None)
 
         # Fused frame path (runtime/fused.py): dino backbones with slic or
-        # grid segmentation (anomaly mode too), and stego x stego; 'none'
-        # (pixel-wise) goes composed.
+        # grid segmentation (anomaly mode too), stego x stego, and the
+        # torchvision pyramids with slic or grid; 'none' (pixel-wise) goes
+        # composed. The CNN pyramids pad, so any rectangle fuses.
         self._fused_frame = None
         dino_fusable = "dino" in fp.feature_type and fp.segmentation_type in ("slic", "grid")
         stego_fusable = fp.feature_type == "stego" and fp.segmentation_type == "stego" and not anomaly_detection
+        tv_fusable = (fp.feature_type == "torchvision" and fp.segmentation_type in ("slic", "grid")
+                      and not anomaly_detection)
         if use_fused and self._W != self._H:
             ps = self.feature_extractor._extractor.vit.cfg.patch_size if dino_fusable or stego_fusable else 1
             if self._H % ps or self._W % ps:
@@ -321,6 +330,22 @@ class WVNRuntime:
                 input_size=self._H,
                 max_edges=self.feature_extractor._max_edges,
                 prediction_per_pixel=fp.prediction_per_pixel,
+                input_width=self._W,
+            )
+        elif use_fused and tv_fusable:
+            from .fused import build_fused_torchvision_frame_fn
+
+            fe = self.feature_extractor
+            self._fused_frame = build_fused_torchvision_frame_fn(
+                fe._extractor,
+                self.estimator.model,
+                self.estimator._cg_cfg,
+                input_size=self._H,
+                segmentation_type=fp.segmentation_type,
+                num_segments=self._S,
+                slic_compactness=fe._slic_compactness,
+                cell_size=fe._cell_size,
+                max_edges=fe._max_edges,
                 input_width=self._W,
             )
 
@@ -472,6 +497,9 @@ class WVNRuntime:
                 if slot is not None:
                     buffer_insert(self.estimator.buffer, slot, fr.features, fr.feat_valid, fr.segments, K_scaled,
                                   node.pose_cam_in_world)
+            if self.gridmap is not None:
+                self._update_gridmap(fr.traversability, fr.confidence, K_scaled, node.pose_cam_in_world,
+                                     node.pose_base_in_world)
             return InferenceResult(traversability=fr.traversability, confidence=fr.confidence, camera=camera,
                                    stamp=stamp)
 
@@ -488,6 +516,8 @@ class WVNRuntime:
             feat_valid = ex.center_valid if ex.center_valid.shape[0] == ex.features.shape[0] else \
                 torch.ones((self._S,), dtype=torch.bool, device=self._device)
             self.estimator.add_mission_node(node, ex.features, feat_valid, ex.segments, K_scaled)
+        if self.gridmap is not None and conf is not None:
+            self._update_gridmap(trav, conf, K_scaled, node.pose_cam_in_world, node.pose_base_in_world)
         return InferenceResult(traversability=trav, confidence=conf, camera=camera, stamp=stamp)
 
     def image_batch_callback(self, imgs, stamps, cameras, Ks: np.ndarray, orig_h: int, orig_w: int,
@@ -499,8 +529,8 @@ class WVNRuntime:
 
         imgs: (B, 3, H0, W0); Ks: (B, 3, 3); poses: (B, 4, 4)."""
         if self._fused_frame is None:
-            raise ValueError("image_batch_callback requires the fused path (use_fused=True; dino with slic or "
-                             "grid, or stego x stego)")
+            raise ValueError("image_batch_callback requires the fused path (use_fused=True; dino or torchvision "
+                             "with slic or grid, or stego x stego)")
         self.events.record("image_batch_callback_received")
         for i, cam in enumerate(cameras):
             self.status.tick(f"camera:{cam}")
@@ -537,6 +567,10 @@ class WVNRuntime:
                     slots[i] = s
             buffer_insert_batch_impl(self.estimator.buffer, slots, fr.features, fr.feat_valid, fr.segments, K_scaled,
                                      np.stack([n.pose_cam_in_world for n in nodes]))
+        if self.gridmap is not None:
+            for i, node in enumerate(nodes):
+                self._update_gridmap(fr.traversability[i], fr.confidence[i], K_scaled[i], node.pose_cam_in_world,
+                                     node.pose_base_in_world)
         return [InferenceResult(camera=node.camera_name, stamp=float(stamps[i]),
                                 batch=(fr.traversability, fr.confidence, i)) for i, node in enumerate(nodes)]
 
@@ -622,8 +656,27 @@ class WVNRuntime:
             self._last_swap_step = cur_step
         return st
 
+    def _update_gridmap(self, trav, conf, K_scaled, pose_cam_in_world, pose_base_in_world):
+        """Recentre the grid on the robot's xy, then fuse the frame's maps
+        with the confidence as weight."""
+        grid = gridmap_recenter(self.gridmap, np.asarray(pose_base_in_world)[:2, 3])
+        self.gridmap = project_traversability_to_grid(grid, trav, K_scaled, pose_cam_in_world, confidence=conf)
+
     def get_carrot(self, yaw: float = 0.0):
-        raise _not_ported("the grid map's carrot", "Queue 1, item 24")
+        """Local goal from the fused grid map (the smart_carrot consumer):
+        ((world_x, world_y), score_map), (None, score_map) when no cell
+        qualifies, or (None, None) without a grid map. The SDF is computed
+        on the device and copied to the host once, with the valid mask."""
+        if self.gridmap is None:
+            return None, None
+        gm = self.gridmap
+        sdf = traversability_sdf(gm.traversability, gm.valid, resolution=self._gridmap_resolution)
+        sdf_h, valid_h = torch.stack([sdf, gm.valid.float()]).cpu().numpy()
+        cell, score = select_carrot(sdf_h, yaw=yaw, valid=valid_h > 0, cfg=CarrotConfig())
+        if cell is None:
+            return None, score
+        world = gm.origin_xy + (np.array([cell[1], cell[0]]) + 0.5) * self._gridmap_resolution
+        return (float(world[0]), float(world[1])), score
 
     def start_learning_thread(self):
         def loop():

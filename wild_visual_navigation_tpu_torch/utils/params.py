@@ -12,6 +12,15 @@ Layout changes:
   * the qkv columns keep flax's (3, heads, head_dim) order, which
     models/vit.py::Attention splits the same way.
 
+`resnet_state_from_jax` and `efficientnet_state_from_jax` convert the CNN pyramids
+(models/resnet.py, models/efficientnet.py): a flax Conv kernel
+(kh, kw, in, out) becomes the (out, in, kh, kw) weight, a depthwise one
+(kh, kw, 1, C) the (C, 1, kh, kw) weight, and FrozenBatchNorm's
+scale / bias / mean / var torchvision's weight / bias / running_mean /
+running_var; the ResNet's `layer{s}_{b}` blocks become `layer{s}.{b}` and
+their `downsample_conv` / `downsample_bn` `downsample.0` / `downsample.1`
+(the inverse of tools/convert_dino_weights.py::convert_resnet_state_dict).
+
 `stego_head_state_from_jax` converts the STEGO head (models/stego_head.py);
 its ViT-B/8 backbone goes through `vit_state_from_jax` like any ViT.
 `linear_rnvp_state_from_jax` and `simple_gcn_state_from_jax` convert the
@@ -79,6 +88,52 @@ def vit_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
                 sd[f"{pre}.{ls}.gamma"] = _t(blk[f"{ls}_gamma"])
         i += 1
     return sd
+
+
+_BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _cnn_state(node: Mapping, prefix: str, sd: dict, rename) -> None:
+    """Walk a flax CNN tree: Conv kernels transposed to torch's layout, Conv
+    biases kept, FrozenBatchNorm leaves renamed; `rename` maps a module's
+    flax name to its torch path."""
+    if "mean" in node and "var" in node:
+        for src, dst in _BN_NAMES.items():
+            sd[f"{prefix}.{dst}"] = _t(node[src])
+        return
+    if "kernel" in node:
+        sd[f"{prefix}.weight"] = _t(np.asarray(node["kernel"]).transpose(3, 2, 0, 1))
+        if "bias" in node:
+            sd[f"{prefix}.bias"] = _t(node["bias"])
+        return
+    for name, child in node.items():
+        _cnn_state(child, f"{prefix}.{rename(name)}" if prefix else rename(name), sd, rename)
+
+
+def _resnet_name(name: str) -> str:
+    if name == "downsample_conv":
+        return "downsample.0"
+    if name == "downsample_bn":
+        return "downsample.1"
+    if name.startswith("layer") and "_" in name:  # layer{s}_{b} -> layer{s}.{b}
+        return name.replace("_", ".")
+    return name
+
+
+def resnet_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax ResNetPyramid params -> models/resnet.py state_dict (torchvision's names)."""
+    sd: dict[str, torch.Tensor] = {}
+    _cnn_state(_inner(params), "", sd, _resnet_name)
+    return sd
+
+
+def efficientnet_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax EfficientNetPyramid params -> models/efficientnet.py state_dict
+    (the flax tree's names)."""
+    sd: dict[str, torch.Tensor] = {}
+    _cnn_state(_inner(params), "", sd, lambda name: name)
+    return sd
+
 
 
 def stego_head_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
