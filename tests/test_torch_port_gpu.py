@@ -783,3 +783,111 @@ def test_obstacle_scenario_on_the_card(cuda):
     counts = port.launch_counts()
     assert all(out["checks"].values()), out
     assert counts["fill_hulls"] > 0 and counts["flash_attention"] == counts["slic_step"] == 0
+
+
+def _offline_data(n=24, S=8, D=16, seed=0):
+    """A separable export-shaped (train, val) pair."""
+    from wild_visual_navigation_tpu_torch.offline import GraphTravDataset
+
+    rng = np.random.RandomState(seed)
+    w = rng.randn(D)
+    x = rng.randn(2 * n, S, D).astype(np.float32)
+    y = (x @ w > 0).astype(np.float32)
+    yv, sv = rng.rand(2 * n, S) < 0.7, np.ones((2 * n, S), bool)
+
+    def sub(sl):
+        return GraphTravDataset(features=x[sl], signal=y[sl], signal_valid=yv[sl], sample_valid=sv[sl])
+
+    return sub(slice(0, n)), sub(slice(n, 2 * n))
+
+
+def test_offline_trainer_on_the_card_matches_the_cpu(cuda):
+    """The same trainer, head and batches on both devices: per-epoch losses
+    within rtol 1e-3 and scores within 1e-4 (cuBLAS sums in another order,
+    TF32 off)."""
+    from wild_visual_navigation_tpu_torch.offline import OfflineTrainer, OfflineTrainerConfig
+
+    train, val = _offline_data()
+    cfg = OfflineTrainerConfig(epochs=6, batch_size=4)
+    cfg.model_cfg["simple_mlp_cfg"]["input_size"] = 16
+    card, cpu = OfflineTrainer(cfg), OfflineTrainer(cfg, device="cpu")
+    assert card.device.type == "cuda"
+    rc, rp = card.fit(train, val), cpu.fit(train, val)
+    np.testing.assert_allclose([h["train_loss"] for h in card.history], [h["train_loss"] for h in cpu.history],
+                               rtol=1e-3)
+    np.testing.assert_allclose(card.predict(val.features), cpu.predict(val.features), atol=1e-4)
+    assert abs(rc["val_auroc"] - rp["val_auroc"]) < 1e-2
+    assert all(t.device.type == "cuda" for t in card.cg_state)
+
+
+def test_population_trial0_matches_the_offline_trainer_on_the_card(cuda):
+    """population_fit on the card: trial 0 against OfflineTrainer on the card
+    within the JAX test's rtol 2e-3 / atol 2e-4 (a batched GEMM against
+    single ones)."""
+    from wild_visual_navigation_tpu_torch.offline import OfflineTrainer, OfflineTrainerConfig
+    from wild_visual_navigation_tpu_torch.tools.param_search import evaluate_population, population_fit, sample_space
+
+    train, val = _offline_data(D=32, seed=3)
+    lr, wt, wr = sample_space(16, seed=42)
+    scores, losses, params = population_fit(train, val, lr, wt, wr, epochs=5, batch_size=4, seed=42)
+    assert all(p.device.type == "cuda" for p in params.values()) and np.isfinite(losses).all()
+    cfg = OfflineTrainerConfig(epochs=5, batch_size=4, seed=42)
+    cfg.model_cfg["simple_mlp_cfg"]["input_size"] = 32
+    trainer = OfflineTrainer(cfg)
+    trainer.fit(train)
+    np.testing.assert_allclose(scores[0], trainer.predict(val.features), rtol=2e-3, atol=2e-4)
+    aurocs = [m["val_auroc"] for m in evaluate_population(scores, val)]
+    assert max(aurocs) >= aurocs[0]
+
+
+def test_soak_on_the_card_passes_every_gate(cuda):
+    """200 frames at 224 px on 2 cameras (dinov2 x slic 64, per-pixel
+    scoring), windows of 50: every gate holds and every kernel launches."""
+    from wild_visual_navigation_tpu_torch.tools import soak
+
+    args = soak.build_parser().parse_args(["--frames", "200", "--size", "224", "--window", "50",
+                                           "--warmup_windows", "1"])
+    r = soak.run_soak(args)
+    gates = {k: v for k, v in r.items() if k.startswith("ok_")}
+    assert all(gates.values()) and r["ok"], {**gates, "windows": r["windows"]}
+    lpf = r["launches_per_frame"]
+    assert lpf["flash_attention"] == 12 and lpf["pixelwise_score"] == 1 and lpf["slic_step"] == 11
+    assert lpf["fill_hulls"] > 0 and r["train_steps"] > 0
+
+
+def test_estimator_pickled_on_the_card_loads_on_the_cpu(cuda, tmp_path):
+    from wild_visual_navigation_tpu_torch.traversability.estimator import TraversabilityEstimator
+    from wild_visual_navigation_tpu_torch.traversability.nodes import MissionNode, SupervisionNode
+
+    cfg = {"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": 16, "hidden_sizes": [32, 1], "reconstruction": True}}
+    est = TraversabilityEstimator(model_cfg=cfg, min_samples_for_training=2, batch_size=4, buffer_capacity=16,
+                                  num_segments=9, feature_dim=16, image_height=48, image_width=64,
+                                  reprojection_fanout=8, supervision_distance_thr=0.05, image_distance_thr=0.1)
+    seg = np.arange(9, dtype=np.int32).reshape(3, 3).repeat(16, 0).repeat(22, 1)[:48, :64]
+    K = np.array([[40.0, 0, 32], [0, 40.0, 24], [0, 0, 1]])
+    cam = np.eye(4)
+    cam[:3, :3] = [[1, 0, 0], [0, -1, 0], [0, 0, -1]]
+    cam[2, 3] = 2.0
+    rng = np.random.default_rng(0)
+    for i, x in enumerate(np.linspace(0, 0.8, 5)):
+        pose = np.eye(4)
+        pose[0, 3] = x
+        est.add_mission_node(MissionNode(timestamp=float(i), pose_base_in_world=pose, pose_cam_in_base=cam),
+                             rng.standard_normal((9, 16)).astype(np.float32), np.ones(9, bool), seg, K)
+        est.add_supervision_node(SupervisionNode(
+            timestamp=i + 0.5, pose_base_in_world=pose, width=0.4, length=0.4, height=0.3,
+            twist_in_base=np.array([1.0, 0, 0]), desired_twist_in_base=np.array([1.0, 0, 0]),
+            traversability=0.8, traversability_var=1.0, is_untraversable=False))
+    for _ in range(3):
+        est.train()
+    n = port.launch_counts()["fill_hulls"]
+    assert n > 0
+    path = est.save_pickle(str(tmp_path / "est.pkl"))
+    on_cpu = TraversabilityEstimator.load_pickle(path, device="cpu")
+    assert on_cpu.step == est.step == 3 and on_cpu._device.type == "cpu"
+    for a, b in zip(on_cpu.buffer, est.buffer):
+        assert a.device.type == "cpu" and torch.equal(a, b.cpu())
+    assert on_cpu.train()["loss_total"] > 0 and on_cpu.step == 4
+    on_card = TraversabilityEstimator.load_pickle(path)
+    assert on_card._device.type == "cuda" and on_card.buffer.features.is_cuda
+    assert on_card.train()["loss_total"] > 0

@@ -23,6 +23,7 @@ import torch
 from ..models.efficientnet import efficientnet_pyramid_dim, make_efficientnet
 from ..models.resnet import make_resnet, pyramid_feature_dim
 from ..ops.resize import center_crop, imagenet_normalize, resize_smaller_edge_nearest
+from ..utils.devices import torch_device
 
 
 class TorchVisionInterface:
@@ -31,9 +32,7 @@ class TorchVisionInterface:
                  generator: Optional[torch.Generator] = None):
         self._input_size = input_size
         self._model_type = model_type
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("TorchVisionInterface: no CUDA device; pass device='cpu' to run on the CPU")
+        self.device = torch_device(device, "TorchVisionInterface")
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
         make = make_efficientnet if model_type.startswith("efficientnet") else make_resnet

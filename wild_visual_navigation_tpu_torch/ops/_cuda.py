@@ -59,6 +59,7 @@ _lib = None
 _lib_lock = threading.Lock()  # one build and one binding, whichever thread launches first
 _count_lock = threading.Lock()  # the wrappers' `launches` counters
 build_seconds: float | None = None  # wall time of this process's nvcc call, if it made one
+builds = 0  # nvcc builds this process ran (a steady run makes none after its first launch)
 
 
 def _nvcc() -> str:
@@ -104,7 +105,7 @@ def build() -> Path:
     """Compile csrc/*.cu into csrc/_build/ unless the hashed library
     exists: one `nvcc -c` per source, all at once, then one link. Returns
     the library's path and prints the build time on its own line."""
-    global build_seconds
+    global build_seconds, builds
     lib_path = BUILD_DIR / f"libwvn_kernels_{_digest()}.so"
     if lib_path.exists():
         return lib_path
@@ -121,6 +122,7 @@ def build() -> Path:
         lib_path.with_suffix(".ptxas.txt").write_text(report)
         os.replace(tmp, lib_path)  # atomic: a concurrent loader sees the old name or the whole file
     build_seconds = time.perf_counter() - t0
+    builds += 1
     print(f"[wvn_torch] built {lib_path.name} from {len(objs)} sources in {build_seconds:.2f} s", flush=True)
     return lib_path
 

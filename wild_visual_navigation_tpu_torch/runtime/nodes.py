@@ -40,6 +40,7 @@ from ..ops.projection import scale_intrinsics
 from ..ops.resize import resize_image
 from ..traversability.nodes import MissionNode
 from ..utils.confidence_generator import ConfidenceConfig, confidence_init, confidence_load_state_dict
+from ..utils.devices import torch_device
 from .fused import _score_rows
 from .msgs import ImageFeatures, SystemStateMsg
 from .runtime import WVNRuntime
@@ -93,9 +94,7 @@ class FeatureExtractorNode:
         self.exp = exp_params or ExperimentParams()
         self._hot_swap_folder = hot_swap_folder
         self._publish_features = publish_features
-        self._device = torch.device(device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("FeatureExtractorNode: no CUDA device; pass device='cpu' to run on the CPU")
+        self._device = torch_device(device, "FeatureExtractorNode")
 
         p = self.params
         self._H, self._W = p.network_input_image_height, p.network_input_image_width

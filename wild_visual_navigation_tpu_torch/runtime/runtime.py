@@ -65,6 +65,7 @@ from ..traversability.estimator import TraversabilityEstimator
 from ..traversability.mission_buffer import buffer_insert, buffer_insert_batch_impl
 from ..traversability.nodes import MissionNode, SupervisionNode
 from ..utils.confidence_generator import confidence_load_state_dict
+from ..utils.devices import torch_device
 from .fused import _score_rows
 from .scheduler import Scheduler
 from .status import StatusMonitor, SystemEvents
@@ -170,9 +171,7 @@ class WVNRuntime:
         JAX one)."""
         if mesh is not None:
             raise _not_ported("a device mesh", "Queue 1, item 27")
-        self._device = torch.device(device)
-        if self._device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("WVNRuntime: no CUDA device; pass device='cpu' to run on the CPU")
+        self._device = torch_device(device, "WVNRuntime")
 
         self.fe_params = fe_params or FeatureExtractorNodeParams()
         self.ln_params = ln_params or LearningNodeParams()

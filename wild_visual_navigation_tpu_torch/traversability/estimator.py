@@ -23,13 +23,18 @@ answer radius queries on the host (numpy); the ring buffer
 (mission_buffer.py) holds the padded training state on the device.
 
 Checkpoints: the hot-swap dict (a snapshot of params + confidence
-statistics), full mission checkpoints in torch's own format, and the
-per-node dataset export.
+statistics), full mission checkpoints in torch's own format, the per-node
+dataset export, and the whole object as a pickle (`save_pickle` /
+`load_pickle`): its tensors travel on the CPU and are put back on the
+saved device, or on the one `load_pickle` names.
 """
 
 from __future__ import annotations
 
+import copy
 import os
+import pickle
+import threading
 from typing import Optional
 
 import numpy as np
@@ -58,6 +63,10 @@ from .nodes import MissionNode, SupervisionNode
 _MAX_FOOTPRINT_POINTS = 64  # static pad for footprint polygons
 
 
+# the device `load_pickle` asks for, read by __setstate__ (None: the saved one)
+_unpickle_device = threading.local()
+
+
 def _node_owns_slot(node) -> bool:
     """Mission nodes still holding a ring-buffer slot are spared from the
     graph's FIFO eviction."""
@@ -68,6 +77,21 @@ def make_adam(params, lr: float) -> torch.optim.Adam:
     """`optax.adam(lr)`: b1 0.9, b2 0.999, eps 1e-8 added outside the
     square root (eps_root 0), bias-corrected moments."""
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def adam_with_moments(model: torch.nn.Module, lr: float, adam: Optional[dict]) -> torch.optim.Adam:
+    """`make_adam` over the model's parameters, holding the given moments:
+    adam is {"step", "exp_avg", "exp_avg_sq"} with the moments by
+    parameter name (None: fresh moments)."""
+    opt = make_adam(model.parameters(), lr)
+    if adam is not None:
+        for name, p in model.named_parameters():
+            opt.state[p] = {
+                "step": torch.tensor(float(adam["step"])),
+                "exp_avg": adam["exp_avg"][name].to(p.device, torch.float32).clone(),
+                "exp_avg_sq": adam["exp_avg_sq"][name].to(p.device, torch.float32).clone(),
+            }
+    return opt
 
 
 class TraversabilityEstimator:
@@ -509,14 +533,7 @@ class TraversabilityEstimator:
         estimator's state."""
         with self._lock:
             self._model.load_state_dict(params)
-            self._optimizer = make_adam(self._model.parameters(), self._lr)
-            if adam is not None:
-                for name, p in self._model.named_parameters():
-                    self._optimizer.state[p] = {
-                        "step": torch.tensor(float(adam["step"])),
-                        "exp_avg": adam["exp_avg"][name].to(p.device, torch.float32).clone(),
-                        "exp_avg_sq": adam["exp_avg_sq"][name].to(p.device, torch.float32).clone(),
-                    }
+            self._optimizer = adam_with_moments(self._model, self._lr, adam)
             self._cg_state = ConfidenceState(*(t.to(self._device) for t in cg_state))
             if step is not None:
                 self._step = step
@@ -592,3 +609,56 @@ class TraversabilityEstimator:
             self._loss = float("inf")
             self._train_calls = 0
             self._vis_mission_node = None
+
+    # ------------------------------------------------- whole-object pickle
+    # (the reference pickles the entire estimator; the lock and the
+    # optimiser are rebuilt on load, tensors travel on the CPU)
+    def __getstate__(self):
+        self._resolve_pending_supervision()  # flushes the queued footprints first
+        cpu = torch.device("cpu")
+        with self._lock:
+            state = self.__dict__.copy()
+            state["_pending_supervision"] = []
+            state["_pending_footprints"] = []
+            del state["_lock"], state["_optimizer"]
+            opt = self._optimizer.state_dict()
+            state["_optimizer_state"] = {
+                "state": {i: {k: v.to(cpu) for k, v in st.items()} for i, st in opt["state"].items()},
+                "param_groups": copy.deepcopy(opt["param_groups"]),
+            }
+            state["_model"] = copy.deepcopy(self._model).to(cpu)
+            state["_buffer"] = MissionBuffer(*(t.to(cpu) for t in self._buffer))
+            state["_cg_state"] = ConfidenceState(*(t.to(cpu) for t in self._cg_state))
+        return state
+
+    def __setstate__(self, state):
+        opt_state = state.pop("_optimizer_state")
+        self.__dict__.update(state)
+        override = getattr(_unpickle_device, "device", None)
+        if override is not None:
+            self._device = torch.device(override)
+        dev = self._device
+        self._model = self._model.to(dev)
+        self._buffer = MissionBuffer(*(t.to(dev) for t in self._buffer))
+        self._cg_state = ConfidenceState(*(t.to(dev) for t in self._cg_state))
+        self._optimizer = make_adam(self._model.parameters(), self._lr)
+        self._optimizer.load_state_dict(opt_state)  # moves the moments to the parameters' device
+        self._lock = TrackedRLock()
+
+    def save_pickle(self, path: str) -> str:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump(self, f)
+        return path
+
+    @staticmethod
+    def load_pickle(path: str, device=None) -> "TraversabilityEstimator":
+        """The pickled estimator on the device it was saved from, or on
+        `device` (a pickle taken on the card loads on a CPU-only machine
+        with device="cpu")."""
+        _unpickle_device.device = device
+        try:
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        finally:
+            _unpickle_device.device = None

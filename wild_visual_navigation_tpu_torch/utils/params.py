@@ -55,7 +55,8 @@ def _t(a) -> torch.Tensor:
 
 
 def _dense(dst: dict, prefix: str, node: Mapping) -> None:
-    dst[f"{prefix}.weight"] = _t(np.asarray(node["kernel"]).T)
+    # (in, out) -> (out, in); leading axes (a stack of heads) stay in front
+    dst[f"{prefix}.weight"] = _t(np.swapaxes(np.asarray(node["kernel"]), -1, -2))
     dst[f"{prefix}.bias"] = _t(node["bias"])
 
 
