@@ -67,7 +67,17 @@ PyTorch version at the main path's shapes, and drives these paths:
     cameras (DINOv2 x SLIC 64, per pixel, 600 frames) with its gates; then
     K1 at (1, 6, 1025, 64), K2 with a 384-d head at 32^2 -> 448^2, K3 at
     448^2 with K = 64 and 100 and K4 from points at 16 x 448^2 against their
-    plain versions, timed.
+    plain versions, timed;
+  * the parallel layer ([parallel] lines): WVNRuntime(mesh=) on 4 Gloo
+    ranks sharing the card as (dp, tp) = (2, 2) at the product's
+    configuration, on the mesh scenario of the JAX package's
+    tests/_mesh_runtime_check.py, against the unmeshed runtime at that
+    check's tolerances, with every rank's checksum and launches (K1 on
+    (2, 3, 785, 64), K4 on 16 hulls); the DistributedTrainer on 2 ranks, each
+    fed every other demo frame (rank 1 starved on the first step), at tp = 1
+    and tp = 2 against a single-process twin stepping on the concatenated
+    rows; a (1, 1) mesh over NCCL against no mesh; the callbacks' and the
+    trainer's times, and K1 and K4 at the ranks' shapes.
 
 It checks each path's outputs and that each went through its kernels, and
 times the kernels, the frame, a supervision flush and a train step. It
@@ -87,12 +97,14 @@ the kernels with their launches in the runtime's replay of the mission
 bounds (K4's of the fill alone, as the TPU kernel it replaces; its launch
 from points under from_points_* keys), and `stego_launches`,
 `anomaly_launches`, `graph_launches`, `golden_launches`,
-`features_launches`, `torchvision_launches`, `closed_loop_launches` and
-`offline_launches`, each kernel's launches in the Jackal runtime's STEGO
-replay, the anomaly runtime's replay, the ten graph frames, the golden
-replay, the facade's sift and histogram extractions, the torchvision
-runtime's replay, the closed-loop scenario and the offline tools' runs
-(each counted the same way). Without a CUDA device, or outside
+`features_launches`, `torchvision_launches`, `closed_loop_launches`,
+`offline_launches` and `parallel_launches`, each kernel's launches in the
+Jackal runtime's STEGO replay, the anomaly runtime's replay, the ten graph
+frames, the golden replay, the facade's sift and histogram extractions, the
+torchvision runtime's replay, the closed-loop scenario, the offline tools'
+runs and rank 0's mesh scenario (each counted the same way); K1's entry
+also has `parallel_tp_rank` (its times at a tp rank's shapes) and K4's
+`parallel_dp_rank_16_hulls`. Without a CUDA device, or outside
 the repository, it exits non-zero and prints no result.
 """
 
@@ -343,6 +355,53 @@ def scene_points(dev, rng, B: int, K: np.ndarray, size: int):
     return p2d, valid_z
 
 
+def product_estimator(dev, size: int, num_segments: int, feature_dim: int):
+    """The estimator at the product's settings (cfg/node_params.py,
+    cfg/experiment.py): capacity 256, fan-out 32, batch 8, the
+    [256, 32, 1] head from seed 0."""
+    from wild_visual_navigation_tpu_torch.cfg.experiment import ExperimentParams
+    from wild_visual_navigation_tpu_torch.cfg.node_params import LearningNodeParams
+    from wild_visual_navigation_tpu_torch.traversability.estimator import TraversabilityEstimator
+
+    ln, exp = LearningNodeParams(), ExperimentParams()
+    return TraversabilityEstimator(
+        model_cfg={"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": feature_dim, "hidden_sizes": [256, 32, 1],
+                                                           "reconstruction": True}},
+        loss_cfg=exp.loss_cfg(), lr=exp.optimizer.lr, max_distance=ln.traversability_radius,
+        image_distance_thr=ln.image_graph_dist_thr, supervision_distance_thr=ln.supervision_graph_dist_thr,
+        min_samples_for_training=ln.min_samples_for_training, batch_size=exp.ablation_data_module.batch_size,
+        buffer_capacity=256, num_segments=num_segments, feature_dim=feature_dim, image_height=size,
+        image_width=size, reprojection_fanout=32, seed=0, device=dev)
+
+
+def mission_events(seq: dict) -> list:
+    """(stamp, 0 for a frame or 1 for a robot state, index) in stamp order."""
+    return sorted([(t, 0, i) for i, t in enumerate(seq["frame_stamps"])] +
+                  [(t, 1, i) for i, t in enumerate(seq["state_stamps"])], key=lambda e: e[0])
+
+
+def frame_node(seq: dict, i: int, stamp: float):
+    from wild_visual_navigation_tpu_torch.traversability.nodes import MissionNode
+
+    return MissionNode(timestamp=float(stamp), pose_base_in_world=seq["frame_pose"][i],
+                       pose_cam_in_base=seq["frame_cam_in_base"][i], camera_name=str(seq["frame_cameras"][i]))
+
+
+def state_node(seq: dict, i: int, stamp: float, sg):
+    """Robot state i through the supervision generator `sg`, as a
+    SupervisionNode of the product's robot."""
+    from wild_visual_navigation_tpu_torch.cfg.node_params import LearningNodeParams
+    from wild_visual_navigation_tpu_torch.traversability.nodes import SupervisionNode
+
+    ln = LearningNodeParams()
+    trav, var, untrav = sg.update_velocity_tracking(seq["state_twist"][i], seq["state_desired"][i],
+                                                    max_velocity=0.8, velocities=["vx", "vy"])
+    return SupervisionNode(timestamp=float(stamp), pose_base_in_world=seq["state_pose"][i],
+                           twist_in_base=seq["state_twist"][i], desired_twist_in_base=seq["state_desired"][i],
+                           length=ln.robot_length, width=ln.robot_width, height=ln.robot_height,
+                           traversability=trav, traversability_var=var, is_untraversable=untrav)
+
+
 def replay_learning(dev, frame, cg_state, seq: dict, size: int, num_segments: int, feature_dim: int,
                     frames_in=None):
     """Replay a recorded mission through the online learning loop at the
@@ -358,22 +417,12 @@ def replay_learning(dev, frame, cg_state, seq: dict, size: int, num_segments: in
     import torch
 
     import wild_visual_navigation_tpu_torch as port
-    from wild_visual_navigation_tpu_torch.cfg.experiment import ExperimentParams
     from wild_visual_navigation_tpu_torch.cfg.node_params import LearningNodeParams
     from wild_visual_navigation_tpu_torch.ops.projection import scale_intrinsics
     from wild_visual_navigation_tpu_torch.supervision.supervision_generator import SupervisionGenerator
-    from wild_visual_navigation_tpu_torch.traversability.estimator import TraversabilityEstimator
-    from wild_visual_navigation_tpu_torch.traversability.nodes import MissionNode, SupervisionNode
 
-    ln, exp = LearningNodeParams(), ExperimentParams()
-    est = TraversabilityEstimator(
-        model_cfg={"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": feature_dim, "hidden_sizes": [256, 32, 1],
-                                                           "reconstruction": True}},
-        loss_cfg=exp.loss_cfg(), lr=exp.optimizer.lr, max_distance=ln.traversability_radius,
-        image_distance_thr=ln.image_graph_dist_thr, supervision_distance_thr=ln.supervision_graph_dist_thr,
-        min_samples_for_training=ln.min_samples_for_training, batch_size=exp.ablation_data_module.batch_size,
-        buffer_capacity=256, num_segments=num_segments, feature_dim=feature_dim, image_height=size,
-        image_width=size, reprojection_fanout=32, seed=0, device=dev)
+    ln = LearningNodeParams()
+    est = product_estimator(dev, size, num_segments, feature_dim)
     sg = SupervisionGenerator(untraversable_thr=ln.untraversable_thr)
     updates, samples = [], []
     reproject, sample = est._reproject_update, est._sample_indices
@@ -389,8 +438,7 @@ def replay_learning(dev, frame, cg_state, seq: dict, size: int, num_segments: in
         return idx
 
     est._reproject_update, est._sample_indices = recorded_reproject, recorded_sample
-    events = sorted([(t, 0, i) for i, t in enumerate(seq["frame_stamps"])] +
-                    [(t, 1, i) for i, t in enumerate(seq["state_stamps"])], key=lambda e: e[0])
+    events = mission_events(seq)
     frames_out, losses, flushes, k4_per_flush = [], [], 0, []
     for stamp, kind, i in events:
         if kind == 0:
@@ -401,16 +449,10 @@ def replay_learning(dev, frame, cg_state, seq: dict, size: int, num_segments: in
             else:
                 out = frames_in[i]
             frames_out.append(out)
-            node = MissionNode(timestamp=float(stamp), pose_base_in_world=seq["frame_pose"][i],
-                               pose_cam_in_base=seq["frame_cam_in_base"][i], camera_name=str(seq["frame_cameras"][i]))
-            est.add_mission_node(node, *out, scale_intrinsics(seq["frame_K"][i], h0, w0, new_h=size))
+            K_scaled = scale_intrinsics(seq["frame_K"][i], h0, w0, new_h=size)
+            est.add_mission_node(frame_node(seq, i, stamp), *out, K_scaled)
             continue
-        trav, var, untrav = sg.update_velocity_tracking(seq["state_twist"][i], seq["state_desired"][i],
-                                                        max_velocity=0.8, velocities=["vx", "vy"])
-        snode = SupervisionNode(timestamp=float(stamp), pose_base_in_world=seq["state_pose"][i],
-                                twist_in_base=seq["state_twist"][i], desired_twist_in_base=seq["state_desired"][i],
-                                length=ln.robot_length, width=ln.robot_width, height=ln.robot_height,
-                                traversability=trav, traversability_var=var, is_untraversable=untrav)
+        snode = state_node(seq, i, stamp, sg)
         n_updates, k4 = len(updates), port.launch_counts()["fill_hulls"]
         if est.add_supervision_node(snode):
             flushes += 1
@@ -1942,6 +1984,311 @@ def offline_phase(dev, card: str, g, demo) -> dict:
     return out
 
 
+# ------------------------------------------------------------- the parallel layer
+PARALLEL_TIMED = 10  # timed calls per rank in the [parallel] phase, after WARMUP calls
+TRAINER_RTOL, TRAINER_ATOL = 1e-4, 1e-5  # the distributed trainer against its twin on the card (fp32)
+
+
+def _parallel_wrapped(counts: dict) -> None:
+    """Record the shapes K1 and K4 launch at on the main path, through the
+    module attributes the ViT and the hull fill call."""
+    import wild_visual_navigation_tpu_torch.models.vit as vit_mod
+    import wild_visual_navigation_tpu_torch.ops.rasterize as rast_mod
+
+    k1, k4 = vit_mod.flash_attention, rast_mod.hull_masks
+
+    def flash(q, k, v, *a, **kw):
+        counts.setdefault("k1_shapes", set()).add(tuple(q.shape))
+        return k1(q, k, v, *a, **kw)
+
+    def hulls(points2d, *a, **kw):
+        counts.setdefault("k4_hulls", set()).add(int(points2d.shape[0]))
+        return k4(points2d, *a, **kw)
+
+    vit_mod.flash_attention, rast_mod.hull_masks = flash, hulls
+
+
+def _calls(n: int = WARMUP + PARALLEL_TIMED) -> list:
+    """wall_ms's inputs for a function of the call's index: the ranks of a
+    mesh make the same calls in the same order."""
+    return [(i,) for i in range(n)]
+
+
+def _mesh_runtime(mesh=None):
+    """WVNRuntime at the product's configuration (ViT-S/8 at 224 in bf16,
+    SLIC 100, per-pixel prediction, buffer 256, fan-out 32) with the mesh
+    scenario's learning gates."""
+    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
+    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import scenario_params
+
+    fe, ln = scenario_params(product=True)
+    return WVNRuntime(fe_params=fe, ln_params=ln, seed=0, buffer_capacity=256, reprojection_fanout=32, mesh=mesh,
+                      device="cuda")
+
+
+def _scenario_and_times(rt, record_shapes: bool = False) -> dict:
+    """The mesh scenario through `rt`, its launches (and, in a rank, the
+    shapes K1 and K4 launched at), then image_batch_callback B=4 and
+    learning_step timed."""
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import run_mesh_scenario, scenario_inputs
+
+    shapes: dict = {}
+    if record_shapes:
+        _parallel_wrapped(shapes)
+    torch.cuda.synchronize()
+    port.reset_launch_counts()
+    out = run_mesh_scenario(rt)
+    torch.cuda.synchronize()
+    out["launches"] = port.launch_counts()
+    out.update({k: sorted(v) for k, v in shapes.items()})
+    imgs, Ks, Tc = scenario_inputs()
+
+    def batch(i):
+        poses = np.tile(np.eye(4), (4, 1, 1))
+        poses[:, 0, 3] = 100.0 + i  # new places: every frame takes a slot, as a robot moving on would
+        res = rt.image_batch_callback(imgs, stamps=[100.0 + i + 0.01 * c for c in range(4)],
+                                      cameras=[f"cam{c}" for c in range(4)], Ks=Ks, orig_h=40, orig_w=40,
+                                      poses_base_in_world=poses, poses_cam_in_base=np.tile(Tc, (4, 1, 1)))
+        return res[-1].traversability
+
+    out["batch_ms"] = wall_ms(batch, _calls())
+    out["learn_ms"] = wall_ms(lambda i: rt.learning_step(), _calls())
+    return out
+
+
+def parallel_mesh_rank(rank: int, world: int) -> dict:
+    """(a) on one rank of the (2, 2) mesh: the meshed runtime."""
+    from wild_visual_navigation_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(dp=2, tp=2, device="cuda")
+    out = _scenario_and_times(_mesh_runtime(mesh), record_shapes=True)
+    out["coords"] = (mesh.get_local_rank("dp"), mesh.get_local_rank("tp"))
+    return out
+
+
+def parallel_nccl_rank(rank: int, world: int) -> dict:
+    """(c) NCCL at world size 1: a (1, 1) mesh against no mesh, same rank."""
+    import torch.distributed as dist
+
+    from wild_visual_navigation_tpu_torch.parallel import create_mesh
+    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import run_mesh_scenario
+
+    backend = dist.get_backend()
+    meshed = run_mesh_scenario(_mesh_runtime(create_mesh(dp=1, tp=1, device="cuda")))
+    plain = run_mesh_scenario(_mesh_runtime())
+    return {"backend": str(backend), "meshed": meshed, "plain": plain}
+
+
+def _ingest(est, seq: dict, frames: list, size: int, keep) -> None:
+    """Mission nodes of the frames `keep` selects (the card's frame outputs)
+    and every robot state's footprint, in stamp order, without training."""
+    from wild_visual_navigation_tpu_torch.cfg.node_params import LearningNodeParams
+    from wild_visual_navigation_tpu_torch.ops.projection import scale_intrinsics
+    from wild_visual_navigation_tpu_torch.supervision.supervision_generator import SupervisionGenerator
+
+    sg = SupervisionGenerator(untraversable_thr=LearningNodeParams().untraversable_thr)
+    h0, w0 = seq["frame_images"].shape[2:]
+    for stamp, kind, i in mission_events(seq):
+        if kind == 0 and keep(i):
+            est.add_mission_node(frame_node(seq, i, stamp), *(t.to(est._device) for t in frames[i]),
+                                 scale_intrinsics(seq["frame_K"][i], h0, w0, new_h=size))
+        elif kind == 1:
+            est.add_supervision_node(state_node(seq, i, stamp, sg))
+    est._resolve_pending_supervision()
+
+
+def parallel_trainer_rank(rank: int, world: int, path: str) -> dict:
+    """(b) one rank's estimator fed its half of the demo mission (every
+    other frame), in a DistributedTrainer with tp = 1 and then tp = 2;
+    rank 1 ingests only after the first step, so it is starved there."""
+    import torch
+
+    from wild_visual_navigation_tpu_torch.parallel import DistributedTrainer
+    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import params_checksum
+
+    data = torch.load(path, weights_only=False)
+    seq, frames, size, S, D = data["seq"], data["frames"], data["size"], data["S"], data["D"]
+    out = {}
+
+    def mine(i):
+        return i % world == rank
+
+    for tp in (1, 2):
+        est = product_estimator("cuda", size, S, D)
+        if rank == 0:
+            _ingest(est, seq, frames, size, mine)
+        trainer = DistributedTrainer(est, tp=tp)
+        local, losses, valid, batches = trainer._local_batch, [], [], []
+
+        def recorded():
+            b = local()
+            batches.append([None if t is None else t.cpu().numpy() for t in b])
+            return b
+
+        trainer._local_batch = recorded
+        for step in range(3):
+            if step == 1 and rank == 1:
+                _ingest(est, seq, frames, size, mine)
+            losses.append(trainer.step()["loss_total"])
+            valid.append(est._mission_graph.get_num_valid_nodes())
+        trainer.sync_to_estimator()
+        trainer._local_batch = local
+        out[tp] = {"losses": losses, "batches": batches, "valid": valid, "mesh": trainer.mesh.mesh_dim_names,
+                   "params": {k: v.detach().cpu().clone().numpy() for k, v in est.params.items()},
+                   "checksum": params_checksum(est.params),
+                   "step_ms": wall_ms(lambda i: trainer.step(), _calls())}
+        if tp == 1:
+            out["local_ms"] = wall_ms(lambda i: est.train(), _calls())
+    return out
+
+
+def parallel_phase(dev, card: str, seq: dict, frames: list, size: int, S: int, D: int) -> dict:
+    """The [parallel] phase: (a) the meshed runtime on 4 Gloo ranks sharing
+    the card as (dp, tp) = (2, 2) against the unmeshed runtime, (b) the
+    distributed trainer on 2 ranks against a single-process twin, (c) NCCL
+    at world size 1; then K1 and K4 at the ranks' shapes, each held against
+    its plain version and timed. Returns rank 0's launches in (a)."""
+    import tempfile
+
+    import torch
+
+    from wild_visual_navigation_tpu_torch.ops.flash_attention import bf16_atol, flash_attention, xla_attention
+    from wild_visual_navigation_tpu_torch.ops.rasterize import convex_hull
+    from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls, fill_hulls_plain, hull_fill
+    from wild_visual_navigation_tpu_torch.parallel.launch import run_ranks
+    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import TOLERANCES
+    from wild_visual_navigation_tpu_torch.utils.data import TravBatch
+
+    t0 = time.perf_counter()
+    # (a) the unmeshed runtime first, alone on the card, then the 4 ranks
+    single = _scenario_and_times(_mesh_runtime())
+    ranks = run_ranks(parallel_mesh_rank, 4, timeout=400)
+    checks = []
+    for r in ranks:
+        trav = max(float(np.abs(a - b).max()) for a, b in zip(r["trav"], single["trav"]))
+        loss_ok = np.allclose(r["losses"], single["losses"], rtol=TOLERANCES["loss_rtol"],
+                              atol=TOLERANCES["loss_atol"])
+        par = max(float(np.abs(r["params"][k] - v).max()) for k, v in single["params"].items())
+        checks.append((trav, loss_ok, par))
+    print(f"[parallel] (a) WVNRuntime(mesh=(dp 2, tp 2)) on 4 Gloo ranks sharing the card, product configuration "
+          f"(ViT-S/8 at 224 bf16, SLIC 100, per pixel, buffer 256, fan-out 32), the mesh scenario (4 cameras x 3 "
+          f"steps, 5 learning steps) against the unmeshed runtime: per rank (dp, tp) {[r['coords'] for r in ranks]}, "
+          f"trav max abs diff {[round(c[0], 6) for c in checks]} (tol {TOLERANCES['trav_atol']}), losses "
+          f"{[round(x, 6) for x in ranks[0]['losses']]} against {[round(x, 6) for x in single['losses']]} (rtol "
+          f"{TOLERANCES['loss_rtol']}, atol {TOLERANCES['loss_atol']}), params max abs diff "
+          f"{[round(c[2], 6) for c in checks]} (tol {TOLERANCES['params_atol']}); checksums "
+          f"{[r['checksum'] for r in ranks]}", flush=True)
+    for rank, r in enumerate(ranks):
+        print(f"[parallel] (a) rank {rank} launches {r['launches']}; K1 at {r.get('k1_shapes')}, K4 on "
+              f"{r.get('k4_hulls')} hulls per launch; unmeshed launches {single['launches']}")
+    require(all(c[0] <= TOLERANCES["trav_atol"] and c[1] and c[2] <= TOLERANCES["params_atol"] for c in checks),
+            "the meshed runtime agrees with the unmeshed one")
+    require(len({r["checksum"] for r in ranks}) == 1, "every rank of the mesh holds the same params")
+    require(single["losses"][-1] >= 0, "the scenario trained")
+    require(all(r["launches"][k] > 0 for r in ranks for k in r["launches"]), "every kernel launched on every rank")
+    require(all(r.get("k1_shapes") == [(2, 3, 785, 64)] and r.get("k4_hulls") == [16] for r in ranks),
+            "K1 on each rank's 3 heads of its 2 frames, K4 on its 16 of the 32 hulls")
+    print(f"[time] (a) image_batch_callback B=4: meshed {[round(r['batch_ms'], 3) for r in ranks]} ms per rank "
+          f"(4 ranks on one card, Gloo), unmeshed {single['batch_ms']:.3f} ms; learning_step meshed "
+          f"{[round(r['learn_ms'], 3) for r in ranks]} ms, unmeshed {single['learn_ms']:.3f} ms; host clock, median "
+          f"of {PARALLEL_TIMED} | {card}", flush=True)
+
+    # (b) the distributed trainer, against a twin stepping on the concatenated rows
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/mission.pt"
+        torch.save({"seq": seq, "frames": [tuple(t.cpu() for t in f) for f in frames], "size": size, "S": S,
+                    "D": D}, path)
+        trainers = run_ranks(parallel_trainer_rank, 2, args=(path,), timeout=400)
+    for tp in (1, 2):
+        twin = product_estimator(dev, size, S, D)
+        twin_losses = []
+        for step in range(3):
+            parts = [[None if a is None else torch.from_numpy(a).to(dev) for a in r[tp]["batches"][step]]
+                     for r in trainers]
+            batch = TravBatch(*(None if f[0] is None else torch.cat(f) for f in zip(*parts)))
+            loss, _, twin._cg_state = twin.step_on_batch(twin.model, twin.optimizer, twin.confidence_state, batch)
+            twin_losses.append(float(loss))
+        rows = [[int(np.asarray(b[3]).sum()) for b in r[tp]["batches"]] for r in trainers]
+        par = max(float(np.abs(r[tp]["params"][k] - v.cpu().numpy()).max()) for r in trainers
+                  for k, v in twin.params.items())
+        print(f"[parallel] (b) DistributedTrainer tp={tp} (mesh {trainers[0][tp]['mesh']}) on 2 Gloo ranks, each "
+              f"fed every other demo frame (valid nodes per step {[r[tp]['valid'] for r in trainers]}; valid rows "
+              f"per step {rows}, rank 1 starved on step 1): losses {[round(x, 6) for x in trainers[0][tp]['losses']]}"
+              f" against the twin's {[round(x, 6) for x in twin_losses]}; params max abs diff {par:.3e} (rtol "
+              f"{TRAINER_RTOL}, atol {TRAINER_ATOL}); checksums {[r[tp]['checksum'] for r in trainers]}", flush=True)
+        require(rows[1][0] == 0 and rows[0][0] > 0 and rows[1][1] > 0, "rank 1 starved on step 1 only")
+        require(trainers[0][tp]["checksum"] == trainers[1][tp]["checksum"], "both ranks hold the same params")
+        for r in trainers:
+            require(np.allclose(r[tp]["losses"], twin_losses, rtol=TRAINER_RTOL, atol=TRAINER_ATOL),
+                    f"the trainer's losses (tp={tp}) match the twin's")
+            require(all(np.allclose(r[tp]["params"][k], v.cpu().numpy(), rtol=TRAINER_RTOL, atol=TRAINER_ATOL)
+                        for k, v in twin.params.items()), f"the trainer's params (tp={tp}) match the twin's")
+    print(f"[time] (b) DistributedTrainer.step (batch 8 x 100 per rank, 2 ranks on one card, Gloo): tp=1 "
+          f"{[round(r[1]['step_ms'], 3) for r in trainers]} ms, tp=2 {[round(r[2]['step_ms'], 3) for r in trainers]} "
+          f"ms; the local estimator's train step {[round(r['local_ms'], 3) for r in trainers]} ms; host clock, "
+          f"median of {PARALLEL_TIMED} | {card}", flush=True)
+
+    # (c) NCCL at world size 1
+    (nccl,) = run_ranks(parallel_nccl_rank, 1, backend="nccl", timeout=400)
+    same = all(np.array_equal(a, b) for a, b in zip(nccl["meshed"]["trav"] + nccl["meshed"]["conf"],
+                                                      nccl["plain"]["trav"] + nccl["plain"]["conf"]))
+    print(f"[parallel] (c) backend {nccl['backend']} at world size 1: WVNRuntime(mesh=(1, 1)) maps equal to the "
+          f"unmeshed runtime's: {same}; losses {nccl['meshed']['losses']} and {nccl['plain']['losses']}", flush=True)
+    require(nccl["backend"] == "nccl" and same and nccl["meshed"]["losses"] == nccl["plain"]["losses"],
+            "a (1, 1) mesh over NCCL gives exactly the unmeshed runtime's maps")
+
+    # the kernels at the ranks' shapes
+    g = torch.Generator(device=dev).manual_seed(7)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k1 = {}
+    for shape in ((2, 3, 785, 64), (1, 3, 785, 64)):
+        B, H, Sq, Dh = shape
+        qkvs = [tuple(torch.randn(shape, device=dev, generator=g).bfloat16() for _ in range(3))
+                for _ in range(WARMUP + N_TIMED)]
+        # a tp rank's heads as the ViT hands them over: strided views of its (B, S, 3, H/tp, Dh) qkv product
+        buf = torch.randn(B, Sq, 3, H, Dh, device=dev, generator=g).bfloat16()
+        for what, (q, k, v) in (("contiguous", qkvs[0]), (f"strided views of a {(B, Sq, 3, H, Dh)} qkv buffer",
+                                                          buf.permute(2, 0, 3, 1, 4).unbind(0))):
+            ref = xla_attention(q, k, v, 0.125).float()
+            err, tol, tail = k1_bf16_check(flash_attention(q, k, v, 0.125), ref, q, k, v, xla_attention, bf16_atol)
+            print(f"[parallel] K1 flash_attention {shape} bfloat16, {what}: max abs err {err:.3e} (tol {tol:.3e}; "
+                  f"without the last kv tile the plain version errs by {tail:.3e})")
+            require(err <= tol < tail, f"K1 at a tp rank's {shape}, {what}")
+        k_ms = device_ms(lambda q, k, v: flash_attention(q, k, v, 0.125), qkvs)
+        p_ms = device_ms(lambda q, k, v: xla_attention(q, k, v, 0.125), qkvs)
+        s_ms = device_ms(lambda q, k, v: sdpa(q, k, v, scale=0.125), qkvs)
+        b = bound(4 * B * H * Sq * Dh * 2, {"bf16_tensor": 4 * B * H * Sq * Sq * Dh})
+        k1[shape] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": s_ms, **b}
+        what = "image_batch_callback B=4 over dp 2" if B == 2 else "image_callback"
+        print(f"[time] K1 flash_attention {shape} bf16 (a tp rank's 3 heads, {what}): kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, torch SDPA {s_ms:.4f} ms; bound {b['bound_ms']:.6f} ms "
+              f"({b['bound_by']}), share of the bound {b['bound_ms'] / k_ms:.3f} | {card}")
+    rng = np.random.default_rng(11)
+    K224 = np.array([[160.0, 0, 112], [0, 160.0, 112], [0, 0, 1]], np.float32)
+    point_sets = [scene_points(dev, rng, 16, K224, 224) for _ in range(WARMUP + N_TIMED)]
+    hull_sets = [convex_hull(p, v, max_hull=32) for p, v in point_sets]
+    differ = [int((fill_hulls(h, v, 224, 224) != fill_hulls_plain(h, v, 224, 224)).sum()) for h, v in hull_sets]
+    from_points = [int((hull_fill(p, v, 224, 224, 32)[0] != fill_hulls_plain(*hs, 224, 224)).sum())
+                   for (p, v), hs in zip(point_sets, hull_sets)]
+    print(f"[parallel] K4 on {len(hull_sets)} sets of 16 hulls at 224x224 (a dp rank's half of the fan-out): pixels "
+          f"differing from fill_hulls_plain {sum(differ)} (must be 0), from points (hull and fill) {sum(from_points)} "
+          f"(must be 0), of {len(hull_sets) * 16 * 224 * 224}")
+    require(sum(differ) == 0 and sum(from_points) == 0, "K4 on 16 hulls identical to its plain version")
+    fa_ms = device_ms(lambda h, v: fill_hulls(h, v, 224, 224), hull_sets)
+    fap_ms = device_ms(lambda h, v: fill_hulls_plain(h, v, 224, 224), hull_sets)
+    hp_ms = device_ms(lambda p, v: hull_fill(p, v, 224, 224, 32), point_sets)
+    b4 = bound(16 * 32 * 9 + 16 * 224 * 224, {"fp32": 16 * 33 * 6})
+    print(f"[time] K4 fill_hulls 16 hulls -> 16x224x224 (a dp rank's half of the fan-out of 32): kernel {fa_ms:.4f} "
+          f"ms, plain {fap_ms:.4f} ms, the launch from points (hull and fill) {hp_ms:.4f} ms; bound "
+          f"{b4['bound_ms']:.6f} ms ({b4['bound_by']}), share of the bound {b4['bound_ms'] / fa_ms:.3f} | {card}")
+    print(f"[parallel] phase done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": ranks[0]["launches"], "k1": k1,
+            "k4_16": {"ms": fa_ms, "plain_ms": fap_ms, "from_points_ms": hp_ms, **b4}}
+
+
 def main() -> int:
     import torch
 
@@ -2264,6 +2611,9 @@ def main() -> int:
     offline = offline_phase(dev, card, g, demo)
     require(all(v > 0 for v in offline["offline_launches"].values()), "the offline tools launched every kernel")
 
+    # ---- 4i. the parallel layer: the meshed runtime on 4 Gloo ranks, the distributed trainer, NCCL at world size 1
+    par = parallel_phase(dev, card, seq, rep["frames"], size, S, D)
+
     # ---- 5. timings (device time from CUDA events; frame latency on the host clock)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape, what in ATTN_SHAPES.items():
@@ -2330,6 +2680,13 @@ def main() -> int:
 
     point_sets = [scene_points(dev, rng, 32, K224, 224) for _ in range(WARMUP + N_TIMED)]
     hull_sets = [convex_hull(p, v, max_hull=32) for p, v in point_sets]
+    differ = [int((fill_hulls(h, v, 224, 224) != fill_hulls_plain(h, v, 224, 224)).sum()) for h, v in hull_sets]
+    from_points = [int((hull_fill(p, v, 224, 224, 32)[0] != fill_hulls_plain(*hs, 224, 224)).sum())
+                   for (p, v), hs in zip(point_sets, hull_sets)]
+    print(f"[parallel] K4 on {len(hull_sets)} sets of 16 hulls at 224x224 (a dp rank's half of the fan-out): pixels "
+          f"differing from fill_hulls_plain {sum(differ)} (must be 0), from points (hull and fill) {sum(from_points)} "
+          f"(must be 0), of {len(hull_sets) * 16 * 224 * 224}")
+    require(sum(differ) == 0 and sum(from_points) == 0, "K4 on 16 hulls identical to its plain version")
     fa_ms = device_ms(lambda h, v: fill_hulls(h, v, 224, 224), hull_sets)
     fap_ms = device_ms(lambda h, v: fill_hulls_plain(h, v, 224, 224), hull_sets)
     k_ms = device_ms(lambda p, v: hull_fill(p, v, 224, 224, 32), point_sets)
@@ -2390,8 +2747,11 @@ def main() -> int:
                 "golden_launches": modes["golden_launches"][name], "features_launches": features_launches[name],
                 "torchvision_launches": tv["torchvision_launches"][name],
                 "closed_loop_launches": tv["closed_loop_launches"][name],
-                "offline_launches": offline["offline_launches"][name]}
+                "offline_launches": offline["offline_launches"][name],
+                "parallel_launches": par["launches"][name]}
                for name, (src, rep) in sources.items()]
+    kernels[0]["parallel_tp_rank"] = {"x".join(map(str, shape)): t for shape, t in par["k1"].items()}
+    kernels[3]["parallel_dp_rank_16_hulls"] = par["k4_16"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

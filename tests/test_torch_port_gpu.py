@@ -891,3 +891,47 @@ def test_estimator_pickled_on_the_card_loads_on_the_cpu(cuda, tmp_path):
     on_card = TraversabilityEstimator.load_pickle(path)
     assert on_card._device.type == "cuda" and on_card.buffer.features.is_cuda
     assert on_card.train()["loss_total"] > 0
+
+
+def test_parallel_tp_vit_on_the_card(cuda, tmp_path):
+    """The tp = 2 ViT (ViT-S/8 widths, 2 blocks, fp32, 224 px) on 2 Gloo
+    ranks sharing the card: K1 on each rank's 3 heads, (1, 3, 785, 64),
+    against the unsharded ViT on the card at K1's fp32 limit, 1e-4."""
+    from wild_visual_navigation_tpu_torch.models import vit as tvit
+    from wild_visual_navigation_tpu_torch.parallel.launch import run_ranks
+
+    import _torch_parallel_ranks as ranks
+
+    cfg = dict(patch_size=8, embed_dim=384, depth=2, num_heads=6, pos_grid_size=28, layerscale_init=None)
+    vit = tvit.VisionTransformer(tvit.ViTConfig(**cfg), dtype=torch.float32, device=cuda,
+                                 generator=torch.Generator().manual_seed(0))
+    x = torch.randn(1, 3, 224, 224, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = tvit.dense_features(vit, x.to(cuda)).cpu().numpy()
+    torch.save({"cfg": cfg, "state": {k: v.cpu() for k, v in vit.state_dict().items()}, "x": x}, tmp_path / "vit.pt")
+    for r in run_ranks(ranks.tp_vit_rank, 2, args=(str(tmp_path / "vit.pt"),), timeout=300):
+        assert r["launches"] == 2 and r["shapes"] == [(1, 3, 785, 64)]
+        np.testing.assert_allclose(r["out"], want, atol=1e-4)
+
+
+def test_parallel_nccl_world_of_one_runtime(cuda):
+    """WVNRuntime with a (1, 1) mesh over NCCL gives exactly the unmeshed
+    runtime's maps and losses on the mesh scenario."""
+    from wild_visual_navigation_tpu_torch.parallel.launch import run_ranks
+
+    import _torch_parallel_ranks as ranks
+
+    (r,) = run_ranks(ranks.nccl_runtime_rank, 1, backend="nccl", timeout=300)
+    assert r["backend"] == "nccl"
+    for a, b in zip(r["meshed"]["trav"] + r["meshed"]["conf"], r["plain"]["trav"] + r["plain"]["conf"]):
+        np.testing.assert_array_equal(a, b)
+    assert r["meshed"]["losses"] == r["plain"]["losses"]
+
+
+def test_parallel_two_rank_trainer_on_the_card(cuda, capsys):
+    """The dryrun's estimators on 2 Gloo ranks sharing the card: both end
+    with the same params checksum, the starved phase included."""
+    from wild_visual_navigation_tpu_torch.tools import dryrun_multiprocess
+
+    assert dryrun_multiprocess.main(["--procs", "2", "--device", "cuda"]) == 0
+    assert "replicated state consistent" in capsys.readouterr().out

@@ -35,6 +35,7 @@ from wild_visual_navigation_tpu_torch import launch_counts
 from wild_visual_navigation_tpu_torch.cfg import experiment as tcfg_exp
 from wild_visual_navigation_tpu_torch.cfg import node_params as tcfg_node
 from wild_visual_navigation_tpu_torch.ops import _cuda
+from wild_visual_navigation_tpu_torch.parallel import DistributedTrainer, create_mesh
 from wild_visual_navigation_tpu_torch.runtime import WVNRuntime, run_replay, synthetic_sequence
 from wild_visual_navigation_tpu_torch.runtime.replay import SimWorld, load_sequence, run_closed_loop, save_sequence
 from wild_visual_navigation_tpu_torch.utils.params import train_state_from_jax, vit_state_from_jax
@@ -455,13 +456,28 @@ def _anomaly_runtime():
     return WVNRuntime(**kw, anomaly_detection=True)
 
 
+def _world_of_one(build):
+    """build() inside a Gloo process group of one rank (the mesh and the
+    distributed trainer need a group), left before returning."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/pg", world_size=1, rank=0)
+        try:
+            return build()
+        finally:
+            dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("build,item", [
-    (lambda: WVNRuntime(**_runtime_kw(False), mesh=object()), "item 27"),
+    (lambda: _world_of_one(lambda: WVNRuntime(**_runtime_kw(False), mesh=create_mesh(device="cpu"))), None),
     (lambda: WVNRuntime(**_runtime_kw(False), gridmap_size=64), None),
     (lambda: _anomaly_runtime(), None),
     (lambda: WVNRuntime(**_runtime_kw(True, feature_type="torchvision")), None),
     (lambda: WVNRuntime(**_runtime_kw(True, dino_quant="int8")), "item 28"),
-    (lambda: WVNRuntime(**_runtime_kw(False)).attach_distributed_trainer(), "item 27"),
+    (lambda: _world_of_one(lambda: WVNRuntime(**_runtime_kw(False)).attach_distributed_trainer()), None),
     (lambda: WVNRuntime(**_runtime_kw(False)).get_carrot(), None),
     (lambda: WVNRuntime(**_runtime_kw(False, dino_quant="int8")).calibrate_backbone([]), "item 28"),
     (lambda: WVNRuntime(**_runtime_kw(False)).export_supervision_markers(), None),
@@ -469,10 +485,16 @@ def _anomaly_runtime():
 def test_unported_options_raise_naming_their_item(build, item):
     """What is not ported raises naming its ROADMAP.md item; anomaly mode
     (item 22), the supervision markers (item 23), the torchvision branch
-    (item 21) and the grid map with its carrot (item 24) are ported and run."""
+    (item 21), the grid map with its carrot (item 24), and the mesh and the
+    distributed trainer (item 27, here in a process group of one rank) are
+    ported and run."""
     if item is None:
         out = build()
-        if isinstance(out, WVNRuntime) and out.anomaly_detection:
+        if isinstance(out, DistributedTrainer):  # a ("dp",) mesh over the one rank, no step yet
+            assert out.mesh.mesh_dim_names == ("dp",) and out.step_count == 0
+        elif isinstance(out, WVNRuntime) and out.mesh is not None:  # a (1, 1) mesh: nothing to split
+            assert tuple(out.mesh.mesh.shape) == (1, 1) and out.estimator._dp == 1
+        elif isinstance(out, WVNRuntime) and out.anomaly_detection:
             assert type(out.estimator.model).__name__ == "LinearRnvp"
         elif isinstance(out, WVNRuntime) and out.gridmap is not None:  # a 64 x 64 grid of 0.1 m around the origin
             assert tuple(out.gridmap.weight.shape) == (64, 64) and not bool(out.gridmap.valid.any())

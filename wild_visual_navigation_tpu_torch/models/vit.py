@@ -16,6 +16,12 @@ attention_impl:
   * "flash" — ops/flash_attention.py::flash_attention, kernel K1 on
     CUDA tensors at every shape (the plain version on CPU tensors);
   * "eager" — the plain einsum/softmax/einsum form.
+
+Tensor parallelism (`shard_heads_`, forward only): each rank of a tp
+process group keeps the qkv rows and proj columns of its own heads and its
+rows of fc1 and columns of fc2, as plain tensors. Attention (K1 on the
+rank's heads) needs no collective; one all_reduce follows proj and one
+follows fc2, in fp32, and their biases are added once, after the sum.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..ops.flash_attention import flash_attention, xla_attention
@@ -61,26 +68,39 @@ def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return nn.functional.linear(x.to(lin.weight.dtype), lin.weight, lin.bias)
 
 
+def _row_parallel(x: torch.Tensor, lin: nn.Linear, group) -> torch.Tensor:
+    """`lin` on x, where each rank of `group` holds its columns of the
+    weight and x its slice of the input features: the partial products
+    summed in fp32 over the group, then the bias, once."""
+    if group is None:
+        return _linear(x, lin)
+    y = nn.functional.linear(x.to(lin.weight.dtype), lin.weight).float()
+    dist.all_reduce(y, group=group)
+    return (y + lin.bias.float()).to(lin.weight.dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig, attention_impl: str, dtype, device):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
         D = cfg.embed_dim
-        self.num_heads = cfg.num_heads
+        self.num_heads = cfg.num_heads  # this rank's heads under tensor parallelism
+        self.head_dim = D // cfg.num_heads
         self.attention_impl = attention_impl
+        self.tp_group = None
         self.qkv = nn.Linear(D, 3 * D, device=device, dtype=dtype)
         self.proj = nn.Linear(D, D, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, D = x.shape
-        H = self.num_heads
-        qkv = _linear(x, self.qkv).reshape(B, N, 3, H, D // H).permute(2, 0, 3, 1, 4)
+        B, N, _ = x.shape
+        H, Dh = self.num_heads, self.head_dim
+        qkv = _linear(x, self.qkv).reshape(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.unbind(0)  # (B, H, N, Dh) views of the qkv product, no copies
         attend = flash_attention if self.attention_impl == "flash" else xla_attention
-        out = attend(q, k, v, (D // H) ** -0.5)
+        out = attend(q, k, v, Dh**-0.5)
         # K1 writes a (B, N, H, Dh) buffer, so on the card this is a view
-        return _linear(out.transpose(1, 2).reshape(B, N, D), self.proj)
+        return _row_parallel(out.transpose(1, 2).reshape(B, N, H * Dh), self.proj, self.tp_group)
 
 
 class Mlp(nn.Module):
@@ -89,9 +109,10 @@ class Mlp(nn.Module):
         hidden = int(cfg.embed_dim * cfg.mlp_ratio)
         self.fc1 = nn.Linear(cfg.embed_dim, hidden, device=device, dtype=dtype)
         self.fc2 = nn.Linear(hidden, cfg.embed_dim, device=device, dtype=dtype)
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _linear(nn.functional.gelu(_linear(x, self.fc1)), self.fc2)
+        return _row_parallel(nn.functional.gelu(_linear(x, self.fc1)), self.fc2, self.tp_group)
 
 
 class LayerScale(nn.Module):
@@ -239,6 +260,49 @@ class VisionTransformer(nn.Module):
         x = self.norm(x.float())
         n_prefix = 1 + cfg.num_register_tokens
         return {"patch_tokens": x[:, n_prefix:], "cls_token": x[:, 0], "grid": (hp, wp)}
+
+
+def _keep(lin: nn.Linear, rows=None, cols=None) -> None:
+    """Replace lin's weight (and bias, for a row cut) by the kept slices."""
+    w, b = lin.weight.detach(), lin.bias.detach()
+    if rows is not None:
+        w, b = w[rows], b[rows]
+    if cols is not None:
+        w = w[:, cols]
+    lin.weight = nn.Parameter(w.contiguous(), requires_grad=False)
+    lin.bias = nn.Parameter(b.contiguous(), requires_grad=False)
+    lin.out_features, lin.in_features = w.shape
+
+
+@torch.no_grad()
+def shard_heads_(vit: VisionTransformer, group, rank: int, tp: int, spec: dict) -> VisionTransformer:
+    """Tensor-parallel ViT, in place: rank `rank` of the tp process group
+    `group` keeps, in every block whose layers `spec` shards
+    (parallel/mesh.py::vit_param_spec), the qkv rows of heads
+    [rank·H/tp, (rank+1)·H/tp) as [q_h, k_h, v_h], the matching proj
+    columns, and its 1/tp of fc1's rows and fc2's columns. Every rank must
+    start from the same full weights. Forward only."""
+    from torch.distributed.tensor import Shard
+
+    for i, blk in enumerate(vit.blocks):
+        attn, mlp = blk.attn, blk.mlp
+        if isinstance(spec.get(f"blocks.{i}.attn.qkv.weight"), Shard):
+            H, Dh = attn.num_heads, attn.head_dim
+            hl = H // tp
+            heads = torch.arange(rank * hl, (rank + 1) * hl, device=attn.qkv.weight.device)
+            # qkv rows are (3, H, Dh): this rank's heads in each of q, k and v
+            rows = (torch.arange(3, device=heads.device)[:, None, None] * H * Dh + heads[None, :, None] * Dh
+                    + torch.arange(Dh, device=heads.device)[None, None, :]).reshape(-1)
+            _keep(attn.qkv, rows=rows)
+            _keep(attn.proj, cols=(heads[:, None] * Dh + torch.arange(Dh, device=heads.device)).reshape(-1))
+            attn.num_heads, attn.tp_group = hl, group
+        if isinstance(spec.get(f"blocks.{i}.mlp.fc1.weight"), Shard):
+            n = mlp.fc1.out_features // tp
+            cut = slice(rank * n, (rank + 1) * n)
+            _keep(mlp.fc1, rows=cut)
+            _keep(mlp.fc2, cols=cut)
+            mlp.tp_group = group
+    return vit
 
 
 def dense_features(vit: VisionTransformer, img: torch.Tensor) -> torch.Tensor:

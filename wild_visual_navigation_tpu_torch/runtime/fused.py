@@ -23,6 +23,11 @@ segment over the frame's segment adjacency, whatever the prediction mode.
 Only a SimpleMLP reconstruction head goes through K2; the others score
 the upsampled features in row bands (`pixelwise_map_rows_chunked`).
 
+Under a ("dp", "tp") mesh, `frames_batch(..., mesh=mesh)` splits the frames
+over dp (padding B up to a multiple of dp), runs each rank's share and
+gathers the results, so every rank holds all B; a tp-sharded ViT
+(models/vit.py::shard_heads_) runs its own collectives inside.
+
 The ViT and the head are nn.Modules that carry their weights, so the
 returned `frame(cg_state, img)` takes only what changes between frames.
 A caller that swaps heads while frames run (the runtime's params mailbox)
@@ -44,6 +49,7 @@ from ..ops.pixelwise import pixelwise_map_rows_chunked, pixelwise_score
 from ..ops.pixelwise import supports_optimized as pixelwise_supports
 from ..ops.resize import imagenet_normalize, interpolate_bilinear, resize_image
 from ..ops.slic import slic_batch
+from ..parallel.mesh import dp_split
 from ..utils.confidence_generator import ConfidenceConfig, ConfidenceState, confidence_inference
 
 
@@ -179,9 +185,11 @@ def build_fused_frame_fn(
         return FrameResult(*(torch.stack(field) for field in zip(*outs)))
 
     @torch.no_grad()
-    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
+    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None, mesh=None) -> FrameResult:
         """(B, 3, H0, W0) -> FrameResult with a leading batch axis; the
         backbone, SLIC and the per-pixel scorer each run once on the batch."""
+        if mesh is not None:
+            return dp_split(mesh, lambda x: frames_batch(cg_state, x, head), imgs)
         if imgs.dtype == torch.uint8:
             imgs = imgs.float() / 255.0
         x = resize_image(imgs, H, W)
@@ -274,8 +282,10 @@ def build_fused_stego_frame_fn(
         return FrameResult(*(torch.stack(field) for field in zip(*outs)))
 
     @torch.no_grad()
-    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
+    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None, mesh=None) -> FrameResult:
         """(B, 3, H0, W0) -> FrameResult with a leading batch axis."""
+        if mesh is not None:
+            return dp_split(mesh, lambda x: frames_batch(cg_state, x, head), imgs)
         if imgs.dtype == torch.uint8:
             imgs = imgs.float() / 255.0
         out = stego.vit(imagenet_normalize(resize_image(imgs, H, W)))
@@ -340,9 +350,11 @@ def build_fused_torchvision_frame_fn(
         return FrameResult(*(torch.stack(field) for field in zip(*outs)))
 
     @torch.no_grad()
-    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
+    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None, mesh=None) -> FrameResult:
         """(B, 3, H0, W0) -> FrameResult with a leading batch axis; the
         pyramid and the segmentation each run once on the batch."""
+        if mesh is not None:
+            return dp_split(mesh, lambda x: frames_batch(cg_state, x, head), imgs)
         if imgs.dtype == torch.uint8:
             imgs = imgs.float() / 255.0
         x = resize_image(imgs, H, W)

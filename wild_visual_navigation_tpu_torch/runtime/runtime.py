@@ -33,9 +33,17 @@ serialises the supervision flush's buffer writes with the frame's insert;
 the estimator's lock orders them on the host. Grad mode is thread-local:
 the frame runs under `no_grad` while the learning thread runs autograd.
 
-Not ported yet, and raising NotImplementedError naming their ROADMAP.md
-item: `mesh` and `attach_distributed_trainer` (27), int8 backbones and
-`calibrate_backbone` with them (28).
+Under a ("dp", "tp") mesh (`mesh=`, parallel/mesh.py::create_mesh) the
+runtime is SPMD: every rank builds the same runtime and makes the same
+calls with the same inputs, and every rank keeps the same state. The DINO
+backbone is split over tp by head (models/vit.py::shard_heads_),
+`image_batch_callback`'s frames over dp, and the estimator splits the
+supervision fan-out and the train step's nodes over dp.
+`attach_distributed_trainer` joins the learning step to the collective
+step of parallel/distributed.py::DistributedTrainer instead.
+
+Not ported yet, and raising NotImplementedError naming its ROADMAP.md
+item: int8 backbones and `calibrate_backbone` with them (28).
 """
 
 from __future__ import annotations
@@ -168,10 +176,11 @@ class WVNRuntime:
         that seeds the global np.random after construction replays with
         that seed here. `backbone_params` is a state dict
         of models/vit.py (utils/params.py::vit_state_from_jax converts a
-        JAX one)."""
-        if mesh is not None:
-            raise _not_ported("a device mesh", "Queue 1, item 27")
+        JAX one). `mesh`: a ("dp", "tp") DeviceMesh over the ranks that
+        run this runtime together (see the module's docstring)."""
         self._device = torch_device(device, "WVNRuntime")
+        self.mesh = mesh
+        self._dist_trainer = None
 
         self.fe_params = fe_params or FeatureExtractorNodeParams()
         self.ln_params = ln_params or LearningNodeParams()
@@ -208,6 +217,13 @@ class WVNRuntime:
             )
             self._S = self.feature_extractor.num_segments(self._H, self._W)
             self._D = self.feature_extractor.feature_dim
+            if mesh is not None and "dino" in fp.feature_type:
+                # tensor-parallel backbone: each tp rank keeps its heads and
+                # MLP units; one all_reduce after proj and one after fc2
+                from ..parallel.mesh import mesh_axis, shard_module, vit_param_spec
+
+                vit = self.feature_extractor._extractor.vit
+                shard_module(vit, vit_param_spec(vit, tp=mesh_axis(mesh, "tp")[0]), mesh)
         else:
             self.feature_extractor = None
             use_fused = False
@@ -246,6 +262,7 @@ class WVNRuntime:
             supervision_flush_every=supervision_flush_every,
             supervision_resolve_every=supervision_resolve_every,
             sampling_seed=sampling_seed,
+            mesh=mesh,
             device=self._device,
         )
         self.supervision_generator = SupervisionGenerator(untraversable_thr=self.ln_params.untraversable_thr)
@@ -357,7 +374,11 @@ class WVNRuntime:
 
     def hot_swap(self):
         """Publish the learner's params to the inference mailbox: a new
-        head built from the estimator's snapshot, swapped in whole."""
+        head built from the estimator's snapshot, swapped in whole. With a
+        distributed trainer attached, its params are written into the
+        estimator first (a collective when its tp > 1)."""
+        if self._dist_trainer is not None:
+            self._dist_trainer.sync_to_estimator()
         with self.estimator.lock:
             snap = self.estimator.state_dict_for_hot_swap()
             cg = confidence_load_state_dict(self.estimator.confidence_state, snap["confidence_generator"])
@@ -555,7 +576,7 @@ class WVNRuntime:
         K_scaled = self._scale_K_cached(np.asarray(Ks), orig_h, orig_w)
         nodes = [self._make_mission_node(stamps[i], cameras[i], poses_base_in_world[i], poses_cam_in_base[i])
                  for i in range(B)]
-        fr = self._fused_frame.frames_batch(cg, x, head)
+        fr = self._fused_frame.frames_batch(cg, x, head, mesh=self.mesh)
         # slots are reserved on the host; gated and non-training cameras get
         # slot == capacity, a row the insert drops on the host
         with self.estimator.lock:
@@ -617,17 +638,37 @@ class WVNRuntime:
 
     # ---------------------------------------------------------- learning
     def attach_distributed_trainer(self, trainer=None, tp: int = 1):
-        raise _not_ported("the distributed trainer", "Queue 1, item 27")
+        """Multi-process mode (parallel/distributed.py): learning_step joins
+        the collective global train step instead of stepping the local
+        estimator, so every process's runtime must call learning_step at
+        the same cadence. Pass a DistributedTrainer, or None to build one
+        over the global mesh (tp > 1: a ("dp", "tp") mesh with the head's
+        linear layers split over tp). Ingestion (camera callbacks,
+        supervision) stays local to the process."""
+        if trainer is None:
+            from ..parallel.distributed import DistributedTrainer
+
+            trainer = DistributedTrainer(self.estimator, tp=tp)
+        self._dist_trainer = trainer
+        return trainer
 
     def learning_step(self) -> SystemState:
         """One tick of the learning loop (reference learning_thread_loop,
         wvn_learning_node.py:344-408): train step, SystemState update, hot
         swap at the checkpoint rate. Losses are read back from the device
-        only at the logging cadence (`logging_thread_rate`)."""
+        only at the logging cadence (`logging_thread_rate`). With a
+        distributed trainer the step is its collective step; a pause binds
+        there too (an operator pauses every process)."""
         log_every = max(1, int(self.ln_params.learning_thread_rate / max(self.ln_params.logging_thread_rate, 1e-9)))
-        convert = (self.estimator.step % log_every) == 0
+        trainer = self._dist_trainer
+        # the cadence follows the counter that advances per tick: the
+        # estimator's step stands still between hot swaps in distributed mode
+        convert = ((trainer.step_count if trainer is not None else self.estimator.step) % log_every) == 0
         try:
-            res = self.estimator.train(convert_losses=convert)
+            if trainer is not None:
+                res = {} if self.estimator.pause_learning else trainer.step()
+            else:
+                res = self.estimator.train(convert_losses=convert)
             # train() returns {} when paused: report the real graph all the same
             res.setdefault("mission_graph_num_valid_node", self.estimator._mission_graph.get_num_valid_nodes())
         except Exception as exc:
@@ -639,7 +680,7 @@ class WVNRuntime:
             self._finish_deferred_shutdown()
         st = self.system_state
         st.mission_graph_num_valid_node = res.get("mission_graph_num_valid_node", 0)
-        cur_step = self.estimator.step
+        cur_step = trainer.step_count if trainer is not None else self.estimator.step
         st.step = cur_step
         # losses only from ticks that produced values (-1 when data-starved
         # is a value); a paused tick keeps the carried readout

@@ -22,6 +22,13 @@ Mission and supervision graphs gate node insertion by SE(3) distance and
 answer radius queries on the host (numpy); the ring buffer
 (mission_buffer.py) holds the padded training state on the device.
 
+Under a ("dp", "tp") mesh (parallel/mesh.py) every rank runs the same
+estimator on the same inputs (SPMD) and keeps the same state: the fan-out
+of a footprint update is split over dp, each rank fills its rows and the
+rows are gathered back; the train step takes each dp rank's nodes of the
+sampled batch, reduces the loss's counts and statistics over dp, and sums
+the gradients over dp before Adam. The head stays replicated.
+
 Checkpoints: the hot-swap dict (a snapshot of params + confidence
 statistics), full mission checkpoints in torch's own format, the per-node
 dataset export, and the whole object as a pickle (`save_pickle` /
@@ -39,12 +46,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.registry import apply_model, get_model, model_needs_edges
 from ..models.simple_gcn import batch_graph
 from ..ops.projection import Camera
 from ..ops.rasterize import project_and_render
 from ..ops.segment_ops import adjacency_list, segment_masked_mean
+from ..parallel.mesh import all_gather_rows, dp_train_step, mesh_axis
 from ..utils.confidence_generator import (
     ConfidenceConfig,
     ConfidenceState,
@@ -52,7 +61,7 @@ from ..utils.confidence_generator import (
     confidence_load_state_dict,
     confidence_state_dict,
 )
-from ..utils.data import batch_from_arrays
+from ..utils.data import TravBatch, batch_from_arrays
 from ..utils.locks import TrackedRLock
 from ..utils.loss import AnomalyLossConfig, TraversabilityLossConfig, anomaly_loss, traversability_loss
 from ..utils.operation_modes import WVNMode
@@ -75,8 +84,12 @@ def _node_owns_slot(node) -> bool:
 
 def make_adam(params, lr: float) -> torch.optim.Adam:
     """`optax.adam(lr)`: b1 0.9, b2 0.999, eps 1e-8 added outside the
-    square root (eps_root 0), bias-corrected moments."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    square root (eps_root 0), bias-corrected moments. A head split over tp
+    mixes DTensor and plain parameters, which Adam's multi-tensor path
+    cannot group: it steps them one by one."""
+    params = list(params)
+    foreach = False if any(isinstance(p, DTensor) for p in params) else None
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, foreach=foreach)
 
 
 def adam_with_moments(model: torch.nn.Module, lr: float, adam: Optional[dict]) -> torch.optim.Adam:
@@ -124,10 +137,14 @@ class TraversabilityEstimator:
         supervision_flush_every: int = 1,
         supervision_resolve_every: int = 1,
         graph_max_elements_factor: int = 4,
+        mesh=None,
         device="cuda",
     ):
-        """The JAX estimator's arguments, less `mesh`, plus `device` (the
-        card unless the caller asks for the CPU), and `sampling_seed`. `seed`
+        """The JAX estimator's arguments, plus `device` (the card unless the
+        caller asks for the CPU), and `sampling_seed`. `mesh` is a
+        ("dp", "tp") DeviceMesh (parallel/mesh.py::create_mesh): the
+        reprojection fan-out and the train step's nodes split over dp, and
+        every rank must make the same calls with the same inputs. `seed`
         draws the head's weights. `sampling_seed` (`seed` when None) seeds
         the estimator's own `np.random.RandomState` for batch sampling,
         which draws what the JAX package's global `np.random.choice` draws
@@ -142,6 +159,8 @@ class TraversabilityEstimator:
         anomaly_detection trains a LinearRnvp head (`model_cfg`) with
         `anomaly_loss_cfg`."""
         self._device = torch.device(device)
+        self._mesh = mesh
+        self._dp, self._dp_rank, self._dp_group = mesh_axis(mesh, "dp")
         self._mode = mode
         self._extraction_store_folder = extraction_store_folder
         self._min_samples_for_training = min_samples_for_training
@@ -235,19 +254,27 @@ class TraversabilityEstimator:
 
         idx (B_max,) host slots, == capacity for padding; footprint (P, 3)
         world points; trav the footprint's traversability. Every row is
-        projected and filled (one K4 launch of B_max hulls); only the rows
-        of real slots are written back. Returns the per-row counts of
-        valid segments, (B_max,) on the device."""
+        projected and filled (one K4 launch of B_max hulls, B_max/dp on each
+        dp rank of a mesh, whose rows are then gathered); only the rows of
+        real slots are written back. Returns the per-row counts of valid
+        segments, (B_max,) on the device."""
         buf, dev = self._buffer, self._device
         cap = buf.capacity
-        sel = torch.as_tensor(np.clip(idx, 0, cap - 1), dtype=torch.long, device=dev)
-        B = len(idx)
+        mine = idx
+        if self._dp > 1:
+            per = -(-len(idx) // self._dp)
+            mine = np.concatenate([idx, np.full(per * self._dp - len(idx), cap, idx.dtype)])
+            mine = mine[self._dp_rank * per:(self._dp_rank + 1) * per]
+        sel = torch.as_tensor(np.clip(mine, 0, cap - 1), dtype=torch.long, device=dev)
+        B = len(mine)
         cam = Camera(K=buf.K[sel], height=self._H, width=self._W)
         pts = torch.as_tensor(footprint, dtype=torch.float32, device=dev)[None].expand(B, -1, 3)
         inside, _, _ = project_and_render(cam, buf.pose_cam_in_world[sel], pts)
         vals = torch.where(inside, torch.tensor(trav, dtype=torch.float32, device=dev), torch.inf)
         fused = torch.minimum(buf.supervision_mask[sel], vals)
         sig, sv = segment_masked_mean(fused, torch.isfinite(fused), buf.seg[sel], self._S)
+        if self._dp > 1:
+            fused, sig, sv = (all_gather_rows(t, self._dp_group)[:len(idx)] for t in (fused, sig, sv))
         rows = np.flatnonzero(idx < cap)  # padding rows are dropped here, on the host
         r = torch.as_tensor(rows, device=dev)
         s = torch.as_tensor(idx[rows], dtype=torch.long, device=dev)
@@ -457,14 +484,51 @@ class TraversabilityEstimator:
         i = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=self._device)
         return buf.features[i], buf.signal[i], buf.signal_valid[i], buf.feat_valid[i] & buf.valid[i][:, None]
 
-    def _model_res(self, x: torch.Tensor, idx):
-        """The head on the batch's (B·S, D) rows. A graph head scores each
-        node over its own segment adjacency, all nodes in one graph."""
-        if not model_needs_edges(self._model):
-            return apply_model(self._model, x)
-        i = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=self._device)
-        edges, edge_valid = adjacency_list(self._buffer.seg[i], self._S, max_edges=self._max_edges)
-        return apply_model(self._model, x, *batch_graph(edges, edge_valid, self._S))
+    def _batch(self, idx, split: bool = True) -> TravBatch:
+        """The sampled nodes' TravBatch: (B·S, ...) rows and, for a graph
+        head, each node's segment adjacency (recomputed from the stored
+        segmentation). Under a mesh (with `split`) only this dp rank's
+        nodes. A batch that dp does not divide is padded with copies of its
+        last node, every sample masked: they add nothing to a masked sum or
+        count, and their losses repeat a real node's, so the minimum and
+        maximum over the rows (moving_average's) stay the batch's own."""
+        idx = np.asarray(idx)
+        n, per = len(idx), -(-len(idx) // self._dp)
+        split = split and self._dp > 1
+        if split:
+            idx = np.concatenate([idx, np.repeat(idx[-1:], per * self._dp - n)])
+        fields = list(self._gather(idx))
+        if model_needs_edges(self._model):
+            i = torch.as_tensor(idx, dtype=torch.long, device=self._device)
+            fields += adjacency_list(self._buffer.seg[i], self._S, max_edges=self._max_edges)
+        if split:
+            fields[3] = fields[3] & (torch.arange(len(idx), device=self._device) < n)[:, None]
+            fields = [f[self._dp_rank * per:(self._dp_rank + 1) * per] for f in fields]
+        batch = batch_from_arrays(*fields[:4])
+        return batch._replace(edges=fields[4], edge_valid=fields[5]) if len(fields) > 4 else batch
+
+    def _loss_on_batch(self, model, batch: TravBatch, cg_state: ConfidenceState, group=None):
+        """(loss, aux, new confidence state) of `model` on the batch: the
+        confidence-weighted loss, or in anomaly mode the flow over the
+        supervised (positively labelled) samples only. A graph head scores
+        each node over its own adjacency, all nodes in one graph."""
+        if batch.edges is None:
+            res = apply_model(model, batch.x)
+        else:
+            res = apply_model(model, batch.x, *batch_graph(batch.edges, batch.edge_valid, self._S))
+        if self._anomaly_detection:
+            return anomaly_loss(self._loss_cfg, res, batch.y_valid & batch.sample_valid, cg_state, group=group)
+        return traversability_loss(self._loss_cfg, batch, res, cg_state, group=group)
+
+    def step_on_batch(self, model, optimizer, cg_state: ConfidenceState, batch: TravBatch, group=None):
+        """The optimisation step on an assembled batch
+        (parallel/mesh.py::dp_train_step on this estimator's loss). Shared
+        by the estimator's train step and
+        parallel/distributed.py::DistributedTrainer, so both run the same
+        math. With a group, `batch` is this rank's rows and the loss and
+        aux returned are the whole batch's. Returns (loss, aux without the
+        per-sample confidence, new confidence state)."""
+        return dp_train_step(model, optimizer, lambda: self._loss_on_batch(model, batch, cg_state, group), group)
 
     def make_batch(self, batch_size: Optional[int] = None):
         """Sampled valid nodes' (features, signal, signal_valid, sample_valid)."""
@@ -476,18 +540,9 @@ class TraversabilityEstimator:
 
     def _train_step(self, idx):
         """gather -> loss -> autograd -> Adam -> confidence state."""
-        batch = batch_from_arrays(*self._gather(idx))
-        self._optimizer.zero_grad(set_to_none=True)
-        res = self._model_res(batch.x, idx)
-        if self._anomaly_detection:
-            # the flow over the supervised (positively labelled) samples only
-            loss, aux, cg2 = anomaly_loss(self._loss_cfg, res, batch.y_valid & batch.sample_valid, self._cg_state)
-        else:
-            loss, aux, cg2 = traversability_loss(self._loss_cfg, batch, res, self._cg_state)
-        loss.backward()
-        self._optimizer.step()
-        self._cg_state = cg2
-        return loss.detach(), {k: v.detach() for k, v in aux.items() if k != "confidence"}
+        loss, aux, self._cg_state = self.step_on_batch(self._model, self._optimizer, self._cg_state,
+                                                       self._batch(idx), self._dp_group)
+        return loss, aux
 
     def train(self, convert_losses: bool = True) -> dict:
         """One optimisation step once more than `min_samples_for_training`
@@ -612,7 +667,9 @@ class TraversabilityEstimator:
 
     # ------------------------------------------------- whole-object pickle
     # (the reference pickles the entire estimator; the lock and the
-    # optimiser are rebuilt on load, tensors travel on the CPU)
+    # optimiser are rebuilt on load, tensors travel on the CPU; the mesh
+    # holds process groups and is dropped: a loaded estimator runs
+    # unmeshed until given a new one)
     def __getstate__(self):
         self._resolve_pending_supervision()  # flushes the queued footprints first
         cpu = torch.device("cpu")
@@ -621,6 +678,7 @@ class TraversabilityEstimator:
             state["_pending_supervision"] = []
             state["_pending_footprints"] = []
             del state["_lock"], state["_optimizer"]
+            state.update(_mesh=None, _dp=1, _dp_rank=0, _dp_group=None)
             opt = self._optimizer.state_dict()
             state["_optimizer_state"] = {
                 "state": {i: {k: v.to(cpu) for k, v in st.items()} for i, st in opt["state"].items()},

@@ -10,6 +10,11 @@ step. The four update methods of the reference:
     as per-batch (sum, sum of squares, count) in a ring.
 A step with no positive sample keeps the previous statistics, for every
 method (for moving_average: the ring neither writes nor advances).
+
+Under a data-parallel process `group` each rank holds its rows of the
+batch: every count, sum, minimum and maximum taken over the batch is
+reduced over the group before it is used, so each rank reaches the state
+the whole batch gives, and the per-sample confidences of its own rows.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from dataclasses import dataclass
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .kalman_filter import KalmanFilterParams, KalmanState, kf_step
 
@@ -78,12 +84,21 @@ def confidence_inference(cfg: ConfidenceConfig, state: ConfidenceState, x: torch
     return (1.0 - (xc - interval_min) / width).float()
 
 
-def _masked_stats(x: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(mean, unbiased std, count) over the masked entries."""
+def group_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """`t` reduced over the process group (t itself without one). The
+    caller passes a tensor no autograd graph holds."""
+    if group is not None:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def _masked_stats(x: torch.Tensor, mask: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean, unbiased std, count) over the masked entries (of every rank
+    of `group`)."""
     m = mask.float()
-    n = torch.sum(m)
-    mean = torch.sum(x * m) / torch.clamp_min(n, 1.0)
-    var = torch.sum(((x - mean) ** 2) * m) / torch.clamp_min(n - 1.0, 1.0)
+    n, s = group_reduce(torch.stack([torch.sum(m), torch.sum(x * m)]), group)
+    mean = s / torch.clamp_min(n, 1.0)
+    var = group_reduce(torch.sum(((x - mean) ** 2) * m), group) / torch.clamp_min(n - 1.0, 1.0)
     return mean, torch.sqrt(var), n
 
 
@@ -92,13 +107,15 @@ def confidence_update(
     state: ConfidenceState,
     x: torch.Tensor,
     pos_mask: torch.Tensor,
+    group=None,
 ) -> Tuple[ConfidenceState, torch.Tensor]:
     """One update step; returns (new_state, per-sample confidence of x).
 
     x: (N,) losses (padded; pass them detached); pos_mask: (N,) bool, the
     positive (footprint-labelled, non-padding) samples the statistics are
-    fit to."""
-    mean_p, std_p, n_p = _masked_stats(x, pos_mask)
+    fit to; group: the data-parallel process group holding the rest of
+    the batch, or None."""
+    mean_p, std_p, n_p = _masked_stats(x, pos_mask, group)
     has_pos = n_p > 0
 
     if cfg.method == "latest_measurement":
@@ -107,8 +124,8 @@ def confidence_update(
         state = state._replace(mean=new_mean, std=new_std, var=new_std**2)
         return state, confidence_inference(cfg, state, x)
 
-    pos_sum = torch.sum(torch.where(pos_mask, x, 0.0))
-    pos_sum2 = torch.sum(torch.where(pos_mask, x * x, 0.0))
+    pos_sum, pos_sum2 = group_reduce(torch.stack([torch.sum(torch.where(pos_mask, x, 0.0)),
+                                                  torch.sum(torch.where(pos_mask, x * x, 0.0))]), group)
 
     if cfg.method == "running_mean":
         rn = state.running_n + n_p
@@ -148,7 +165,8 @@ def confidence_update(
                            window_ptr=state.window_ptr + has_pos.to(torch.int32), mean=mean, var=var, std=std)
     # clip to mean +- 2 std, then min-max normalise
     xc = torch.minimum(torch.maximum(x, mean - 2 * std), mean + 2 * std)
-    lo, hi = torch.min(xc), torch.max(xc)
+    lo = group_reduce(torch.min(xc), group, dist.ReduceOp.MIN)
+    hi = group_reduce(torch.max(xc), group, dist.ReduceOp.MAX)
     return state, ((xc - lo) / torch.clamp_min(hi - lo, 1e-12)).float()
 
 

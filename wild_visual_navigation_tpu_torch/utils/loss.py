@@ -9,6 +9,12 @@ written as masked reductions, so shapes stay fixed.
     loss_trav_i = (trav_i - y_i)^2         (or binary cross-entropy)
     loss_trav   = (sum_labelled + sum_unlabelled * (1 - conf)) / N
     loss        = w_trav * loss_trav + w_reco * mean_labelled(loss_reco)
+
+Under a data-parallel process `group` each rank holds its rows of the
+batch. The counts every mean divides by, and the confidence statistics,
+are reduced over the group; the sums that carry the gradient stay the
+rank's own. Each rank's loss (and aux) is then its part of the whole
+batch's: the ranks' losses add up to it, and so do their gradients.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .confidence_generator import ConfidenceConfig, ConfidenceState, confidence_inference, confidence_update
+from .confidence_generator import ConfidenceConfig, ConfidenceState, confidence_inference, confidence_update, group_reduce
 from .data import TravBatch
 
 
@@ -32,9 +38,9 @@ class TraversabilityLossConfig:
     confidence: ConfidenceConfig = ConfidenceConfig()
 
 
-def _masked_mean(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def _masked_mean(v: torch.Tensor, m: torch.Tensor, group=None) -> torch.Tensor:
     mf = m.to(v.dtype)
-    return torch.sum(v * mf) / torch.clamp_min(torch.sum(mf), 1.0)
+    return torch.sum(v * mf) / torch.clamp_min(group_reduce(torch.sum(mf.detach()), group), 1.0)
 
 
 def traversability_loss(
@@ -43,10 +49,12 @@ def traversability_loss(
     res: torch.Tensor,
     cg_state: ConfidenceState,
     update_generator: bool = True,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], ConfidenceState]:
     """Loss on model output `res` (N, 1 + D) -> (loss, aux incl. the
     per-sample confidence, new confidence state). No gradient flows
-    through the confidence statistics."""
+    through the confidence statistics. `group`: the data-parallel process
+    group holding the rest of the batch, or None."""
     D = batch.x.shape[-1]
     reco = res[:, -D:]
     trav = res[:, 0]
@@ -57,7 +65,7 @@ def traversability_loss(
 
     loss_reco_ng = loss_reco.detach()
     if update_generator:
-        cg_state, confidence = confidence_update(cfg.confidence, cg_state, loss_reco_ng, labeled)
+        cg_state, confidence = confidence_update(cfg.confidence, cg_state, loss_reco_ng, labeled, group)
     else:
         confidence = confidence_inference(cfg.confidence, cg_state, loss_reco_ng)
     confidence = confidence.detach()
@@ -69,21 +77,21 @@ def traversability_loss(
     else:
         loss_trav_raw = (trav - batch.y) ** 2
 
-    n = torch.clamp_min(torch.sum(batch.sample_valid.float()), 1.0)
+    n = torch.clamp_min(group_reduce(torch.sum(batch.sample_valid.float()), group), 1.0)
     if cfg.anomaly_balanced:
         s_labeled = torch.sum(torch.where(labeled, loss_trav_raw, 0.0))
         s_unlabeled = torch.sum(torch.where(unlabeled, loss_trav_raw * (1.0 - confidence), 0.0))
         loss_trav_confidence = (s_labeled + s_unlabeled) / n
     else:
-        loss_trav_confidence = _masked_mean(loss_trav_raw, batch.sample_valid)
+        loss_trav_confidence = _masked_mean(loss_trav_raw, batch.sample_valid, group)
 
-    loss_reco_mean = _masked_mean(loss_reco, labeled)
+    loss_reco_mean = _masked_mean(loss_reco, labeled, group)
     loss_temp = torch.zeros_like(loss_trav_confidence)
     loss = cfg.w_trav * loss_trav_confidence + cfg.w_reco * loss_reco_mean + cfg.w_temp * loss_temp
 
     aux = {
         "loss_reco": loss_reco_mean,
-        "loss_trav": _masked_mean(loss_trav_raw, batch.sample_valid),
+        "loss_trav": _masked_mean(loss_trav_raw, batch.sample_valid, group),
         "loss_temp": loss_temp,
         "loss_trav_confidence": loss_trav_confidence,
         "confidence": confidence,
@@ -102,16 +110,18 @@ def anomaly_loss(
     sample_valid: torch.Tensor,
     cg_state: ConfidenceState,
     update_generator: bool = True,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], ConfidenceState]:
     """Flow negative log-likelihood + confidence update.
-    res: {"logprob": (N, D), "log_det": (N,)}; sample_valid: (N,) bool."""
+    res: {"logprob": (N, D), "log_det": (N,)}; sample_valid: (N,) bool;
+    group: the data-parallel process group, or None."""
     losses = torch.sum(res["logprob"], dim=-1) + res["log_det"]  # (N,) log-likelihoods
     neg = (-losses).detach()
     if update_generator:
-        cg_state, confidence = confidence_update(cfg.confidence, cg_state, neg, sample_valid)
+        cg_state, confidence = confidence_update(cfg.confidence, cg_state, neg, sample_valid, group)
     else:
         confidence = confidence_inference(cfg.confidence, cg_state, neg)
-    loss = -_masked_mean(losses, sample_valid)
+    loss = -_masked_mean(losses, sample_valid, group)
     zero = torch.zeros((), device=losses.device)
     return loss, {"loss_trav": zero, "loss_reco": zero, "confidence": confidence}, cg_state
 
