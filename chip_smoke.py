@@ -77,14 +77,35 @@ PyTorch version at the main path's shapes, and drives these paths:
     fed every other demo frame (rank 1 starved on the first step), at tp = 1
     and tp = 2 against a single-process twin stepping on the concatenated
     rows; a (1, 1) mesh over NCCL against no mesh; the callbacks' and the
-    trainer's times, and K1 and K4 at the ranks' shapes.
+    trainer's times, and K1 and K4 at the ranks' shapes; and image_callback
+    one frame at a time on the (2, 2) mesh (K1 on (1, 3, 785, 64)) against
+    the unmeshed runtime;
+  * the int8 backbones ([quant] lines): WVNRuntime at the product's
+    settings with dino_quant="int8_static", calibrated on the first 2 demo
+    frames, replaying the mission in turns with the bf16 runtime on the
+    same weights (K1 12, K2 1, K3 11 per frame, K4 per flush), its first 6
+    frames against the CPU twin, both frames profiled; BASELINE config 5
+    (DINOv2 ViT-B/14 at 644, 4 cameras, grid, patch-resolution scoring)
+    through image_batch_callback as int8_static, int8 and bf16 on the same
+    weights, in turns, with the device time split into the int8 products,
+    K1, the fp products and the rest; torch._int_mm exact at every Linear of
+    ViT-S/8, ViT-S/14 and ViT-B/14 and the shapes its raw call refuses; and
+    attention_scores_int8 within JAX's band;
+  * the exported engine ([engine] lines): `python -m
+    wild_visual_navigation_tpu_torch.tools.export_engine` at its defaults
+    (DINOv2 ViT-S/14 at 224) and an int8_static engine built through the
+    API, each loaded in a fresh process (this script with --engine-child)
+    and held to the eager pipeline bit for bit, refusing another shape, its
+    flops against the analytic count, its memory; whether `import triton`
+    works; and K1's operator against the direct call, per call and in the
+    frame.
 
 It checks each path's outputs and that each went through its kernels, and
 times the kernels, the frame, a supervision flush and a train step. It
 also prints each kernel body's registers, shared memory and spills
 (ptxas's report of the build), the tensor-core instructions in the SASS by
 function (HGMMA in K1's bf16 body, HMMA in K2: each must be above 0), K1
-at eight ViT shapes beside SDPA (ViT-S/8, ViT-S/14, ViT-B/14 and ViT-B/8),
+at ten ViT shapes beside SDPA (ViT-S/8, ViT-S/14, ViT-B/14 and ViT-B/8),
 K1 on strided views of a qkv buffer, K2 at B=1, B=4 and a ragged output and
 with the STEGO head at 224 and 448, K3 with the bound of the (pixel, candidate)
 pairs it searched, `slic_batch` at B=1 and B=4, K4 from points (hulls
@@ -98,13 +119,15 @@ bounds (K4's of the fill alone, as the TPU kernel it replaces; its launch
 from points under from_points_* keys), and `stego_launches`,
 `anomaly_launches`, `graph_launches`, `golden_launches`,
 `features_launches`, `torchvision_launches`, `closed_loop_launches`,
-`offline_launches` and `parallel_launches`, each kernel's launches in the
+`offline_launches`, `parallel_launches`, `quant_launches` and
+`engine_launches`, each kernel's launches in the
 Jackal runtime's STEGO replay, the anomaly runtime's replay, the ten graph
 frames, the golden replay, the facade's sift and histogram extractions, the
 torchvision runtime's replay, the closed-loop scenario, the offline tools'
-runs and rank 0's mesh scenario (each counted the same way); K1's entry
-also has `parallel_tp_rank` (its times at a tp rank's shapes) and K4's
-`parallel_dp_rank_16_hulls`. Without a CUDA device, or outside
+runs, rank 0's mesh scenario, the int8_static runtime's replay and one call
+of the reloaded engine (each counted the same way); K1's entry also has
+`parallel_tp_rank` (its times at a tp rank's shapes) and
+`operator_overhead_us`, and K4's `parallel_dp_rank_16_hulls`. Without a CUDA device, or outside
 the repository, it exits non-zero and prints no result.
 """
 
@@ -139,6 +162,8 @@ ATTN_SHAPES = {
     (1, 12, 785, 64): "ViT-B/8 at 224, the Jackal runtime's STEGO frame",
     (4, 12, 785, 64): "ViT-B/8 at 224, the STEGO frames_batch B=4",
     (1, 12, 3137, 64): "ViT-B/8 at 448, StegoInterface's default",
+    (4, 12, 2117, 64): "ViT-B/14 at 644, BASELINE config 5's 4 cameras",
+    (1, 6, 257, 64): "ViT-S/14 at 224, the exported engine's default",
 }
 # SLIC at 448: the least label agreement of the card's 10 iterations with the plain whole-image loop (the
 # card's first reading: 0.9998 on a random image, 0.9998 to 1.0 on four demo frames, NVIDIA H100 80GB HBM3)
@@ -656,20 +681,8 @@ def two_process(dev, seq: dict, seq_path: Path) -> dict:
 def profile_calls(fn, inputs) -> tuple[float, float, float, float]:
     """torch.profiler over fn(*x) for each input: (wall ms per call, device
     kernel ms per call, kernel launches per call, busy share)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for x in inputs:
-            fn(*x)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = [r for r in prof.key_averages() if str(r.device_type).endswith("CUDA") and r.device_time_total > 0]
-    busy = sum(r.device_time_total for r in rows) / 1e3
-    n = len(inputs)
-    return wall / n, busy / n, sum(r.count for r in rows) / n, busy / wall
+    p = profile_ops(fn, inputs)
+    return p["wall_ms"], p["device_ms"], p["launches"], p["busy"]
 
 
 def torch_device(dev) -> str:
@@ -2063,9 +2076,16 @@ def parallel_mesh_rank(rank: int, world: int) -> dict:
     """(a) on one rank of the (2, 2) mesh: the meshed runtime."""
     from wild_visual_navigation_tpu_torch.parallel import create_mesh
 
+    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import run_single_frame_scenario
+
     mesh = create_mesh(dp=2, tp=2, device="cuda")
     out = _scenario_and_times(_mesh_runtime(mesh), record_shapes=True)
     out["coords"] = (mesh.get_local_rank("dp"), mesh.get_local_rank("tp"))
+    # image_callback one frame at a time on a fresh meshed runtime: the tp ViT on one frame
+    shapes: dict = {}
+    _parallel_wrapped(shapes)
+    out["single_frame"] = run_single_frame_scenario(_mesh_runtime(mesh))
+    out["single_frame_k1_shapes"] = sorted(shapes.get("k1_shapes", ()))
     return out
 
 
@@ -2159,7 +2179,7 @@ def parallel_phase(dev, card: str, seq: dict, frames: list, size: int, S: int, D
     from wild_visual_navigation_tpu_torch.ops.rasterize import convex_hull
     from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls, fill_hulls_plain, hull_fill
     from wild_visual_navigation_tpu_torch.parallel.launch import run_ranks
-    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import TOLERANCES
+    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import TOLERANCES, run_single_frame_scenario
     from wild_visual_navigation_tpu_torch.utils.data import TravBatch
 
     t0 = time.perf_counter()
@@ -2191,6 +2211,17 @@ def parallel_phase(dev, card: str, seq: dict, frames: list, size: int, S: int, D
     require(all(r["launches"][k] > 0 for r in ranks for k in r["launches"]), "every kernel launched on every rank")
     require(all(r.get("k1_shapes") == [(2, 3, 785, 64)] and r.get("k4_hulls") == [16] for r in ranks),
             "K1 on each rank's 3 heads of its 2 frames, K4 on its 16 of the 32 hulls")
+    single_frame = run_single_frame_scenario(_mesh_runtime())
+    sf = [max(float(np.abs(a - b).max()) for a, b in zip(r["single_frame"]["trav"], single_frame["trav"]))
+          for r in ranks]
+    sf_feat = [float(np.abs(r["single_frame"]["features"] - single_frame["features"]).max()) for r in ranks]
+    print(f"[parallel] (a) image_callback one frame at a time on the (2, 2) mesh ({len(single_frame['trav'])} calls, "
+          f"the scenario's cameras in turn) against the unmeshed runtime: trav max abs diff per rank "
+          f"{[round(x, 6) for x in sf]} (tol {TOLERANCES['trav_atol']}), buffer features max abs diff "
+          f"{[round(x, 6) for x in sf_feat]}; K1 at {[r['single_frame_k1_shapes'] for r in ranks]}", flush=True)
+    require(all(x <= TOLERANCES["trav_atol"] for x in sf), "the meshed single-frame callback agrees with the unmeshed")
+    require(all(r["single_frame_k1_shapes"] == [(1, 3, 785, 64)] for r in ranks),
+            "K1 on each rank's 3 heads of the one frame")
     print(f"[time] (a) image_batch_callback B=4: meshed {[round(r['batch_ms'], 3) for r in ranks]} ms per rank "
           f"(4 ranks on one card, Gloo), unmeshed {single['batch_ms']:.3f} ms; learning_step meshed "
           f"{[round(r['learn_ms'], 3) for r in ranks]} ms, unmeshed {single['learn_ms']:.3f} ms; host clock, median "
@@ -2262,7 +2293,7 @@ def parallel_phase(dev, card: str, seq: dict, frames: list, size: int, S: int, D
         s_ms = device_ms(lambda q, k, v: sdpa(q, k, v, scale=0.125), qkvs)
         b = bound(4 * B * H * Sq * Dh * 2, {"bf16_tensor": 4 * B * H * Sq * Sq * Dh})
         k1[shape] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": s_ms, **b}
-        what = "image_batch_callback B=4 over dp 2" if B == 2 else "image_callback"
+        what = "image_batch_callback B=4 over dp 2" if B == 2 else "image_callback, one frame"
         print(f"[time] K1 flash_attention {shape} bf16 (a tp rank's 3 heads, {what}): kernel {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms, torch SDPA {s_ms:.4f} ms; bound {b['bound_ms']:.6f} ms "
               f"({b['bound_by']}), share of the bound {b['bound_ms'] / k_ms:.3f} | {card}")
@@ -2287,6 +2318,484 @@ def parallel_phase(dev, card: str, seq: dict, frames: list, size: int, S: int, D
     print(f"[parallel] phase done in {time.perf_counter() - t0:.1f} s", flush=True)
     return {"launches": ranks[0]["launches"], "k1": k1,
             "k4_16": {"ms": fa_ms, "plain_ms": fap_ms, "from_points_ms": hp_ms, **b4}}
+
+
+# ---------------------------------------------------------------- 4j [quant] and 4k [engine]
+
+QUANT_CPU_TOL = {"trav_mean": 2e-2, "trav_max": 2e-1, "conf_mean": 5e-2}  # int8 card against its CPU twin
+QUANT_CPU_FRAMES = 6  # the CPU twin replays the mission's first frames
+QUANT_ATTN_REL = 0.05  # attention_scores_int8 against fp32 attention: JAX's own band (tests/test_models.py)
+QUANT_FEAT_REL = 0.05  # config 5's features against the bf16 ViT's, relative L2
+# every Linear of ViT-S/8 at 224 (B=1), the engine's ViT-S/14 at 224 and ViT-B/14 at 644 (B=4): (rows, in, out)
+INT_MM_SHAPES = {"ViT-S/8 224": [(785, 384, 1152), (785, 384, 384), (785, 384, 1536), (785, 1536, 384)],
+                 "ViT-S/14 224 (engine)": [(257, 384, 1152), (257, 1536, 384)],
+                 "ViT-B/14 644 B=4": [(8468, 768, 2304), (8468, 768, 768), (8468, 768, 3072), (8468, 3072, 768)]}
+
+
+def drive(rt, kind: str, payload):
+    """One event of the recorded mission through rt's callbacks, as
+    run_replay drives it: a frame's result, or None after a robot state and
+    its learning step."""
+    if kind == "frame":
+        f = payload
+        return rt.image_callback(f.image, f.stamp, f.camera, f.K, f.image.shape[1], f.image.shape[2],
+                                 f.pose_base_in_world, f.pose_cam_in_base)
+    rt.robot_state_callback(payload.stamp, payload.pose_base_in_world, payload.current_twist, payload.desired_twist)
+    rt.learning_step()
+    return None
+
+
+def profile_ops(fn, inputs) -> dict:
+    """torch.profiler over fn(*x) for each input: wall ms, device kernel ms
+    and kernel launches per call, the busy share, and the device ms per call
+    of each operator's own kernels (self time, by operator name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x in inputs:
+            fn(*x)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    n = len(inputs)
+    averages = prof.key_averages()
+    kernels = [r for r in averages if str(r.device_type).endswith("CUDA") and r.device_time_total > 0]
+    busy = sum(r.device_time_total for r in kernels) / 1e3
+    ops = {r.key: r.self_device_time_total / 1e3 / n for r in averages
+           if not str(r.device_type).endswith("CUDA") and r.self_device_time_total > 0}
+    return {"wall_ms": wall / n, "device_ms": busy / n, "launches": sum(r.count for r in kernels) / n,
+            "busy": busy / wall, "ops": dict(sorted(ops.items(), key=lambda kv: -kv[1])),
+            "kernels": {r.key: r.device_time_total / 1e3 / n for r in kernels}}
+
+
+def int8_split(prof: dict) -> dict:
+    """A profile's device ms per call in four parts: the int8 products
+    (aten::_int_mm's kernels), K1 (its kernels by name: the eager route
+    launches them outside any operator), the fp products (mm, addmm, bmm)
+    and everything else (the quantise and dequantise passes in an int8
+    frame, the LayerNorms, casts, GELU, SLIC, scoring, ...)."""
+    ops = prof["ops"]
+    out = {"int_mm": ops.get("aten::_int_mm", 0.0),
+           "K1": sum(ms for name, ms in prof["kernels"].items() if "flash_fwd" in name),
+           "fp_mm": sum(ops.get(op, 0.0) for op in ("aten::mm", "aten::addmm", "aten::bmm"))}
+    out["rest"] = prof["device_ms"] - sum(out.values())
+    return out
+
+
+def quant_phase(dev, card: str, seq_path: Path) -> dict:
+    """Phase 4j [quant]: (a) WVNRuntime at the product's settings with
+    dino_quant="int8_static", calibrated on the first 2 demo frames, replaying
+    the mission interleaved with the same runtime in bf16 on the same
+    weights, and its first frames on the CPU; (b) BASELINE config 5 (DINOv2
+    ViT-B/14 at 644, 4 cameras, grid, patch-resolution scoring) as
+    int8_static, int8 and bf16 on the same weights, interleaved; (c) the
+    shape rules of torch._int_mm at every Linear, and attention_scores_int8.
+    Returns the int8 runtime's launches over its replay."""
+    import dataclasses
+
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.cfg.experiment import ExperimentParams
+    from wild_visual_navigation_tpu_torch.cfg.node_params import FeatureExtractorNodeParams, LearningNodeParams
+    from wild_visual_navigation_tpu_torch.models import quant
+    from wild_visual_navigation_tpu_torch.models.vit import StaticQuantLinear, dense_features, make_vit
+    from wild_visual_navigation_tpu_torch.ops.flash_attention import xla_attention
+    from wild_visual_navigation_tpu_torch.ops.resize import imagenet_normalize
+    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime, load_sequence
+    from wild_visual_navigation_tpu_torch.runtime.replay import Sequence
+
+    t_phase = time.perf_counter()
+    sequence = load_sequence(str(seq_path))
+    events = list(sequence.events())
+    fe, ln = runtime_params()
+
+    def product(device, dino_quant):
+        return WVNRuntime(fe_params=dataclasses.replace(fe, dino_quant=dino_quant), ln_params=ln, seed=0,
+                          buffer_capacity=256, reprojection_fanout=32, device=device)
+
+    # (a) the product runtime, int8_static against bf16, in turns on every event
+    rts = {"int8_static": product(dev, "int8_static"), "bf16": product(dev, None)}
+    cal = [sequence.frames[i].image[None] for i in range(2)]
+    require(rts["int8_static"].calibrate_backbone(cal) and not rts["bf16"].calibrate_backbone(cal),
+            "calibrate_backbone: True for int8_static, False for bf16")
+    amax = [float(m.amax) for m in rts["int8_static"].feature_extractor._extractor.vit.modules()
+            if isinstance(m, StaticQuantLinear)]
+    require(len(amax) == 48 and min(amax) > 0, "48 calibrated activation scales")
+    maps = {k: [] for k in rts}
+    host = {k: [] for k in rts}
+    per_frame, quant_launches = [], {k: 0 for k in port.launch_counts()}
+    for i, (_, kind, payload) in enumerate(events):
+        order = list(rts) if i % 2 == 0 else list(rts)[::-1]
+        for name in order:
+            before = port.launch_counts()
+            t0 = time.perf_counter()
+            res = drive(rts[name], kind, payload)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            if name == "int8_static":
+                delta = {k: v - before[k] for k, v in port.launch_counts().items()}
+                quant_launches = {k: quant_launches[k] + delta[k] for k in delta}
+                if kind == "frame":
+                    per_frame.append(delta)
+            if res is not None:
+                host[name].append(dt)
+                maps[name].append(tuple(t.float().cpu().numpy() for t in (res.traversability, res.confidence)))
+    n_frames = len(sequence.frames)
+    require(all(len(maps[k]) == n_frames for k in maps), "every frame accepted by both runtimes")
+    require(all((d["flash_attention"], d["pixelwise_score"], d["slic_step"]) == (12, 1, 11) for d in per_frame),
+            f"K1 12, K2 1, K3 11 launches per int8 frame: {per_frame[:3]}")
+    steps = rts["int8_static"].estimator.step
+    for t, c in maps["int8_static"]:
+        require(np.isfinite(t).all() and np.isfinite(c).all() and t.min() >= 0 and t.max() <= 1 and c.min() >= 0
+                and c.max() <= 1, "the int8 runtime's maps finite, in [0, 1]")
+    trav_vs = [float(np.abs(a[0] - b[0]).mean()) for a, b in zip(maps["int8_static"], maps["bf16"])]
+    conf_vs = [float(np.abs(a[1] - b[1]).mean()) for a, b in zip(maps["int8_static"], maps["bf16"])]
+    print(f"[quant] (a) WVNRuntime(dino_quant=int8_static) at the product's settings (ViT-S/8 at 224, SLIC 100, per "
+          f"pixel, buffer 256, fan-out 32), calibrated on the first 2 demo frames (48 scales, amax "
+          f"{min(amax):.3f} to {max(amax):.3f}), replaying {n_frames} frames + {len(sequence.states)} robot states "
+          f"in turns with the bf16 runtime on the same weights: K1 12, K2 1, K3 11 per frame; over the replay "
+          f"{quant_launches} ({steps} train steps, K4 {quant_launches['fill_hulls']} "
+          f"flushes); against bf16 the trav mean abs diff per frame {np.mean(trav_vs):.3e} mean, {max(trav_vs):.3e} "
+          f"max; conf {np.mean(conf_vs):.3e} mean, {max(conf_vs):.3e} max (heads trained apart) | {card}", flush=True)
+    require(quant_launches["fill_hulls"] > 0 and steps > 0, "the int8 replay flushed supervision and trained")
+
+    # the CPU twin: the same int8_static runtime on the CPU over the mission's first frames
+    first = Sequence(frames=sequence.frames[:QUANT_CPU_FRAMES],
+                     states=[s for s in sequence.states if s.stamp <= sequence.frames[QUANT_CPU_FRAMES - 1].stamp])
+    cpu = product("cpu", "int8_static")
+    cpu.calibrate_backbone(cal)
+    cpu_maps = [tuple(t.float().numpy() for t in (r.traversability, r.confidence))
+                for r in (drive(cpu, kind, p) for _, kind, p in first.events()) if r is not None]
+    card_maps = maps["int8_static"][:QUANT_CPU_FRAMES]
+    t_mean = max(float(np.abs(a[0] - b[0]).mean()) for a, b in zip(card_maps, cpu_maps))
+    t_max = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(card_maps, cpu_maps))
+    c_mean = max(float(np.abs(a[1] - b[1]).mean()) for a, b in zip(card_maps, cpu_maps))
+    print(f"[quant] (a) against the CPU twin (int8_static, same weights and calibration frames) over the first "
+          f"{len(cpu_maps)} frames: trav mean abs diff up to {t_mean:.3e} (tol {QUANT_CPU_TOL['trav_mean']}), max "
+          f"{t_max:.3e} (tol {QUANT_CPU_TOL['trav_max']}), conf mean abs diff up to {c_mean:.3e} (tol "
+          f"{QUANT_CPU_TOL['conf_mean']})", flush=True)
+    require(len(cpu_maps) == QUANT_CPU_FRAMES and t_mean <= QUANT_CPU_TOL["trav_mean"]
+            and t_max <= QUANT_CPU_TOL["trav_max"] and c_mean <= QUANT_CPU_TOL["conf_mean"],
+            "the int8 runtime agrees with its CPU twin")
+    del cpu
+    demo = np.stack([f.image for f in sequence.frames])
+    prof = {}
+    for name in ["int8_static", "bf16", "bf16", "int8_static"]:
+        rt = rts[name]
+        head, cg = rt.inference_head
+        frames = [(torch.from_numpy(demo[i : i + 1]).to(dev),) for i in range(10)]
+        prof.setdefault(name, []).append(profile_ops(lambda x: rt._fused_frame(cg, x, head), frames))
+    for name in rts:
+        p = prof[name]
+        split = int8_split(p[0])
+        print(f"[quant] (a) {name} frame B=1 (image_callback's fused frame, 10 demo frames under the profiler, twice "
+              f"in turns): host {[round(x['wall_ms'], 3) for x in p]} ms, device "
+              f"{[round(x['device_ms'], 4) for x in p]}"
+              f" ms per frame, {p[0]['launches']:.0f} launches per frame, busy share {p[0]['busy']:.3f}; device ms "
+              f"per frame: int8 products {split['int_mm']:.4f}, K1 {split['K1']:.4f}, fp products "
+              f"{split['fp_mm']:.4f}, the rest {split['rest']:.4f}; image_callback host median "
+              f"{statistics.median(host[name]):.3f} ms over the replay | {card}", flush=True)
+        print(f"[quant] (a) {name} top operators (device ms per frame): "
+              + ", ".join(f"{op} {ms:.4f}" for op, ms in list(p[0]["ops"].items())[:10]))
+    del rts, prof
+
+    # (b) BASELINE config 5 on one card: DINOv2 ViT-B/14 at 644, 4 cameras, grid, patch-resolution scoring
+    t0 = time.perf_counter()
+    size, B = 644, 4
+    cams = {f"cam{i}": {"use_for_training": True, "scheduler_weight": 1} for i in range(B)}
+    weights = make_vit("dinov2", "vit_base", 14, dtype=torch.float32, device="cpu",
+                       generator=torch.Generator().manual_seed(0)).state_dict()
+    # layerscale 1, as JAX's int8 band tests set it: at its 1e-5 init every block is near the identity and any
+    # quantisation error vanishes from the features (trained DINOv2 gammas are of order 0.1 to 1)
+    weights = {k: torch.ones_like(v) if k.endswith(".gamma") else v for k, v in weights.items()}
+
+    def config5(dino_quant):
+        fe5 = FeatureExtractorNodeParams(network_input_image_height=size, network_input_image_width=size,
+                                         segmentation_type="grid", feature_type="dinov2", dino_backbone="vit_base",
+                                         dino_patch_size=14, dino_quant=dino_quant, grid_cell_size=size // 10,
+                                         prediction_per_pixel=True, image_callback_rate=1e6, camera_topics=cams)
+        ln5 = LearningNodeParams(network_input_image_height=size, network_input_image_width=size,
+                                 supervision_callback_rate=1e6, learning_thread_rate=1e6, image_graph_dist_thr=0.05,
+                                 supervision_graph_dist_thr=0.05, min_samples_for_training=4, camera_topics=cams,
+                                 traversability_radius=3.0)
+        return WVNRuntime(fe_params=fe5, ln_params=ln5, exp_params=ExperimentParams(), buffer_capacity=64,
+                          reprojection_fanout=32, score_at_patch_res=True, backbone_params=weights, device=dev)
+
+    modes = ("int8_static", "int8", "bf16")
+    rt5 = {m: config5(None if m == "bf16" else m) for m in modes}
+    rng = np.random.RandomState(0)
+    pool = [torch.from_numpy(rng.rand(B, 3, size, size).astype(np.float32)).to(dev) for _ in range(4)]
+    require(rt5["int8_static"].calibrate_backbone(pool[:2]), "config 5 calibrated")
+    K = np.tile(np.array([[400.0, 0, size / 2], [0, 400.0, size / 2], [0, 0, 1]]), (B, 1, 1))
+    down = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float64)
+
+    def call(rt, i):
+        pb, pc = np.tile(np.eye(4), (B, 1, 1)), np.tile(np.eye(4), (B, 1, 1))
+        pb[:, 0, 3], pb[:, 2, 3], pb[:, :3, :3], pc[:, 0, 3] = i * 0.11, 1.5, down, 0.05 * np.arange(B)
+        return rt.image_batch_callback(pool[i % len(pool)], [i + 0.001 * c for c in range(B)], list(cams), K, size,
+                                       size, pb, pc)
+
+    lat = {m: [] for m in modes}
+    for i in range(WARMUP + 10):
+        for m in (modes if i % 2 == 0 else modes[::-1]):
+            t1 = time.perf_counter()
+            res = call(rt5[m], i)
+            torch.cuda.synchronize()
+            if i >= WARMUP:
+                lat[m].append((time.perf_counter() - t1) * 1e3)
+            require(all(bool(torch.isfinite(r.traversability).all()) for r in res), f"config 5 {m}: finite maps")
+    profs = {m: profile_ops(lambda i: call(rt5[m], i), [(100 + i,) for i in range(3)]) for m in modes}
+    x = imagenet_normalize(pool[3])
+    with torch.no_grad():
+        feats = {m: dense_features(rt5[m].feature_extractor._extractor.vit, x).float() for m in modes}
+    ref = feats["bf16"]
+    for m in modes:
+        p, split = profs[m], int8_split(profs[m])
+        cos = torch.nn.functional.cosine_similarity(feats[m], ref, dim=1)
+        rel = float((feats[m] - ref).norm() / ref.norm())
+        print(f"[quant] (b) BASELINE config 5 {m}: image_batch_callback B=4 (DINOv2 ViT-B/14 at 644, 2117 tokens, "
+              f"grid 64 px, patch-resolution scoring) host median {statistics.median(lat[m]):.3f} ms "
+              f"({statistics.median(lat[m]) / B:.3f} ms per frame, {len(lat[m])} calls in turns); under the profiler "
+              f"device {p['device_ms']:.3f} ms per call ({p['launches']:.0f} launches, busy {p['busy']:.3f}): int8 "
+              f"products {split['int_mm']:.3f}, K1 {split['K1']:.3f}, fp products {split['fp_mm']:.3f}, the rest "
+              f"{split['rest']:.3f} ms; features against bf16: cosine min {float(cos.min()):.5f} mean "
+              f"{float(cos.mean()):.5f}, relative L2 {rel:.3e} | {card}", flush=True)
+        print(f"[quant] (b) {m} top operators (device ms per call): "
+              + ", ".join(f"{op} {ms:.4f}" for op, ms in list(p["ops"].items())[:10]))
+        require(bool(torch.isfinite(feats[m]).all()) and rel < QUANT_FEAT_REL, f"config 5 {m}: features near bf16's")
+    del rt5, feats
+    print(f"[quant] (b) done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (c) torch._int_mm's shape rules at every Linear, exact against an fp64 product; attention_scores_int8
+    g = torch.Generator(device=dev).manual_seed(3)
+    checked = []
+    for what, shapes in INT_MM_SHAPES.items():
+        for M, Kd, N in shapes:
+            a = torch.randint(-127, 128, (M, Kd), device=dev, dtype=torch.int8, generator=g)
+            b = torch.randint(-127, 128, (Kd, N), device=dev, dtype=torch.int8, generator=g)
+            exact = torch.equal(torch._int_mm(a, b).double(), a.double() @ b.double())
+            require(exact and torch.equal(quant.int_mm(a, b), torch._int_mm(a, b)), f"_int_mm exact at {(M, Kd, N)}")
+            checked.append((what, M, Kd, N))
+            # the right operand's layout: row-major as given, column-major as int_mm hands it over; bf16's GEMM
+            wt, ab, bb = b.t().contiguous(), a.bfloat16(), b.t().contiguous().bfloat16()
+            row = device_ms(lambda: torch._int_mm(a, b), [()] * (WARMUP + N_TIMED))
+            col = device_ms(lambda: torch._int_mm(a, wt.t()), [()] * (WARMUP + N_TIMED))
+            bf = device_ms(lambda: torch.nn.functional.linear(ab, bb), [()] * (WARMUP + N_TIMED))
+            print(f"[quant] (c) {what} ({M}, {Kd}, {N}): _int_mm with the right operand row-major {row:.4f} ms, "
+                  f"column-major {col:.4f} ms; the bf16 linear {bf:.4f} ms | {card}")
+    refused = []
+    a = torch.randint(-127, 128, (16, 384), device=dev, dtype=torch.int8, generator=g)
+    b = torch.randint(-127, 128, (384, 64), device=dev, dtype=torch.int8, generator=g)
+    a64 = torch.randint(-127, 128, (785, 64), device=dev, dtype=torch.int8, generator=g)
+    b64 = torch.randint(-127, 128, (64, 800), device=dev, dtype=torch.int8, generator=g)
+    probes = {"16 rows": (a, b), "inner 380": (a[:, :380], b[:380]), "60 columns": (a, b[:, :60]),
+              "inner 64 with a row-major right operand": (a64, b64)}
+    for name, (x1, x2) in probes.items():
+        try:
+            torch._int_mm(x1.contiguous(), x2.contiguous())
+        except RuntimeError:
+            refused.append(name)
+        padded = quant.int_mm(x1, x2)
+        require(torch.equal(padded.double(), x1.double() @ x2.double()), f"int_mm pads {name} exactly")
+    q, k, v = (torch.randn(1, 6, 785, 64, device=dev, generator=g) for _ in range(3))
+    got = quant.attention_scores_int8(q, k, v, 0.125)
+    want = xla_attention(q, k, v, 0.125)
+    rel = float((got - want).norm() / want.norm())
+    print(f"[quant] (c) torch._int_mm exact (against an fp64 product) at every Linear of {list(INT_MM_SHAPES)}: "
+          f"{len(checked)} shapes; refused by the raw call with contiguous operands: {refused} (of {list(probes)}), "
+          f"each exact through int_mm (zero padding, the right operand column-major); attention_scores_int8 at "
+          f"(1, 6, 785, 64) against fp32 attention: "
+          f"relative L2 {rel:.3e} (JAX's band {QUANT_ATTN_REL})", flush=True)
+    require(rel < QUANT_ATTN_REL, "attention_scores_int8 within JAX's band")
+    print(f"[quant] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return quant_launches
+
+
+PORT_MODEL_CODE = ("wild_visual_navigation_tpu_torch.models", "wild_visual_navigation_tpu_torch.tools")
+
+
+def engine_child(x_path: str, *specs_and_outs: str) -> int:
+    """The fresh process of phase 4k: for each (spec, out) pair, load the
+    engine (no model code), call it once counting launches, time it, refuse
+    another shape, count its operations and its memory; one JSON line, a
+    list with an entry per engine."""
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.feature_extractor.aot_engine import load_engine, load_engine_spec
+
+    x = torch.from_numpy(np.load(x_path)).cuda()
+    report = []
+    for spec, out_path in zip(specs_and_outs[::2], specs_and_outs[1::2]):
+        t0 = time.perf_counter()
+        engine = load_engine(spec)
+        load_s = time.perf_counter() - t0
+        _, shape, _, meta = load_engine_spec(spec)
+        engine(x)
+        torch.cuda.synchronize()
+        port.reset_launch_counts()
+        out = engine(x)
+        torch.cuda.synchronize()
+        launches = port.launch_counts()
+        np.save(out_path, out.cpu().numpy())
+        try:
+            engine(torch.zeros(shape[0], 3, shape[2] + 14, shape[3] + 14, device="cuda"))
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        report.append({"load_s": load_s, "launches": launches, "ms": wall_ms(engine, [(x,)] * (WARMUP + 10)),
+                       "flops": engine.flops, "memory": engine.memory_analysis(), "refused": refused, "meta": meta})
+    for r in report:
+        r["models_imported"] = sorted(m for m in sys.modules if m.startswith(PORT_MODEL_CODE))
+    print(json.dumps(report))
+    return 0
+
+
+def engine_phase(dev, card: str) -> dict:
+    """Phase 4k [engine]: `python -m ...tools.export_engine` at its defaults
+    (DINOv2 ViT-S/14 at 224, B = 1, bf16) in a subprocess, then an int8_static
+    engine built through the API; each loaded in a fresh process and held to
+    the eager pipeline bit for bit, refusing another shape, its operations
+    within 1 % of the analytic count. Then K1's operator against the direct
+    launch, per call and in the frame. Returns the engine's launches."""
+    import tempfile
+
+    import torch
+
+    import wild_visual_navigation_tpu_torch.models.vit as vit_mod
+    from wild_visual_navigation_tpu_torch.feature_extractor.aot_engine import (
+        load_engine_spec,
+        program_path,
+        save_engine_spec,
+    )
+    from wild_visual_navigation_tpu_torch.models.vit import calibrate_int8_static
+    from wild_visual_navigation_tpu_torch.ops import flash_attention as k1_mod
+    from wild_visual_navigation_tpu_torch.tools.export_engine import build_pipeline, export_pipeline, pipeline_flops
+
+    t_phase = time.perf_counter()
+    try:
+        import triton
+
+        triton_line = f"import triton works (triton {triton.__version__})"
+    except ImportError as e:
+        triton_line = f"import triton fails ({e})"
+    print(f"[engine] {triton_line}; the engine is the saved ExportedProgram, run eagerly (no AOTInductor)")
+    rng = np.random.default_rng(5)
+    x = rng.random((1, 3, 224, 224), dtype=np.float32)
+    results = {}
+    with tempfile.TemporaryDirectory() as d:
+        np.save(f"{d}/x.npy", x)
+
+        def check(tag, pipe, info, got, export_s):
+            with torch.no_grad():
+                eager = pipe(torch.from_numpy(x).to(dev)).cpu().numpy()
+                eager_ms = wall_ms(pipe, [(torch.from_numpy(x).to(dev),)] * (WARMUP + 10))
+            same = np.array_equal(got, eager)
+            analytic = pipeline_flops(pipe, 224, 1)
+            flops_rel = info["flops"] / analytic - 1
+            print(f"[engine] {tag}: exported in {export_s:.1f} s, loaded in a fresh process in {info['load_s']:.2f} s "
+                  f"(model modules imported there: {info['models_imported']}); output {got.shape} equal to the eager "
+                  f"pipeline bit for bit: {same}; another shape refused: {info['refused']!r}; flops {info['flops']} "
+                  f"against the analytic {analytic} ({flops_rel:+.4%}); launches of one call {info['launches']}; "
+                  f"memory {info['memory']}; host per call {info['ms']:.3f} ms (eager pipeline {eager_ms:.3f} ms) "
+                  f"| {card}", flush=True)
+            require(same, f"{tag}: the reloaded engine equals eager bit for bit")
+            require(info["refused"].startswith("AOTEngine expects (1, 3, 224, 224)"), f"{tag}: another shape refused")
+            require(abs(flops_rel) < 0.01, f"{tag}: flops within 1 % of the analytic count")
+            require(info["launches"]["flash_attention"] == 12, f"{tag}: K1 12 launches per call")
+            require(info["memory"] is not None and info["memory"]["peak_bytes"] > 0, f"{tag}: memory analysis")
+            return info["launches"]
+
+        # the tool in its process while this one builds, calibrates, exports and saves the int8_static engine
+        spec, spec8 = f"{d}/engines/engine.spec", f"{d}/engine_int8_static.spec"
+        t0 = time.perf_counter()
+        tool = subprocess.Popen([sys.executable, "-m", "wild_visual_navigation_tpu_torch.tools.export_engine", "--out",
+                                 spec], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(ROOT))
+        pipe8 = build_pipeline(device=dev, quant="int8_static")
+        calibrate_int8_static(pipe8.vit, [torch.from_numpy(rng.random((2, 3, 224, 224), dtype=np.float32)).to(dev)
+                                          for _ in range(2)])
+        eng8 = export_pipeline(pipe8, 224, 1)
+        n_int_mm = sum(n.target is torch.ops.aten._int_mm.default for n in eng8.program.graph.nodes)
+        save_engine_spec(spec8, {"vit": pipe8.vit.state_dict(), "head": pipe8.head.state_dict()}, eng8.input_shape,
+                         str(eng8.input_dtype), {"quant": "int8_static"}, program=eng8.program)
+        tool_out, tool_err = tool.communicate(timeout=600)
+        tool_s = time.perf_counter() - t0
+        require(tool.returncode == 0, f"tools.export_engine at its defaults: {tool_err[-2000:]}")
+        print(f"[engine] tools.export_engine at its defaults ({tool_s:.1f} s in its process, beside this one's int8 "
+              f"export): " + " | ".join(tool_out.strip().splitlines()), flush=True)
+        require(n_int_mm == 48, f"the int8 program holds 48 _int_mm nodes ({n_int_mm})")
+        for tag, program in (("bf16", torch.export.load(program_path(spec))), ("int8_static", eng8.program)):
+            targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+            print(f"[engine] the {tag} program: {len(targets)} operator nodes, of which "
+                  f"{sum('_assert_tensor_metadata' in t for t in targets)} metadata asserts and "
+                  f"{sum(t == 'aten.to.dtype' for t in targets)} casts, "
+                  f"{sum(t == 'aten._int_mm.default' for t in targets)} _int_mm", flush=True)
+        # both engines loaded in one fresh process
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--engine-child", f"{d}/x.npy", spec,
+                              f"{d}/bf16.npy", spec8, f"{d}/int8.npy"], capture_output=True, text=True,
+                             cwd=str(ROOT), timeout=300)
+        require(out.returncode == 0, f"the engines load in a fresh process: {out.stderr[-2000:]}")
+        info, info8 = json.loads(out.stdout.strip().splitlines()[-1])
+        params, shape, dtype, meta = load_engine_spec(spec)
+        pipe = build_pipeline(device=dev)
+        pipe.vit.load_state_dict(params["vit"])
+        pipe.head.load_state_dict(params["head"])
+        results["engine_launches"] = check("bf16 engine (the tool's)", pipe, info, np.load(f"{d}/bf16.npy"),
+                                           float(tool_out.split("exported in ")[1].split("s")[0]))
+        check("int8_static engine (through the API)", pipe8, info8, np.load(f"{d}/int8.npy"), eng8.compile_seconds)
+
+    # K1's operator against the direct launch: per call on the host clock, and in the frame
+    g = torch.Generator(device=dev).manual_seed(9)
+    for shape in ((1, 6, 785, 64), (1, 6, 257, 64)):
+        q, k, v = (torch.randn(shape, device=dev, generator=g).bfloat16() for _ in range(3))
+        require(torch.equal(k1_mod.flash_attention_op(q, k, v, 0.125), k1_mod.flash_attention(q, k, v, 0.125)),
+                f"the operator equals the direct launch at {shape}")
+        per = {}
+        for name in ["op", "direct", "direct", "op"]:
+            fn = k1_mod.flash_attention_op if name == "op" else k1_mod.flash_attention
+            for _ in range(50):
+                fn(q, k, v, 0.125)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(300):
+                fn(q, k, v, 0.125)
+            host_us = (time.perf_counter() - t0) / 300 * 1e6
+            torch.cuda.synchronize()
+            per.setdefault(name, []).append(host_us)
+        print(f"[engine] K1 at {shape} bf16, host time per call (enqueue, 300 calls, in turns): through the operator "
+              f"wvn::flash_attention {[round(t, 2) for t in per['op']]} us, the direct launch "
+              f"{[round(t, 2) for t in per['direct']]} us; overhead {np.mean(per['op']) - np.mean(per['direct']):.2f} "
+              f"us per call, {12 * (np.mean(per['op']) - np.mean(per['direct'])) / 1e3:.4f} ms over a frame's 12 "
+              f"| {card}", flush=True)
+        results.setdefault("op_overhead_us", {})["x".join(map(str, shape))] = \
+            float(np.mean(per["op"]) - np.mean(per["direct"]))
+    from wild_visual_navigation_tpu_torch.feature_extractor.dino import DinoInterface
+    from wild_visual_navigation_tpu_torch.models.registry import get_model
+    from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_frame_fn
+    from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig, confidence_init
+
+    dino = DinoInterface(backbone="dino", input_size=224, backbone_type="vit_small", patch_size=8, device=dev, seed=0)
+    mlp = get_model({"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": 384, "hidden_sizes": [256, 32, 1],
+                                                             "reconstruction": True}}, device=dev).eval()
+    frame = build_fused_frame_fn(dino.vit, mlp, ConfidenceConfig(), 224, num_segments=100)
+    cg = confidence_init(dev)
+    imgs = [(cg, torch.from_numpy(rng.random((1, 3, 64, 64), dtype=np.float32)).to(dev)) for _ in range(WARMUP + 15)]
+    frame_ms = {}
+    through_op = lambda q, k, v, s=1.0: k1_mod.flash_attention_op(q, k, v, float(s))  # noqa: E731
+    for name in ["op", "direct", "direct", "op"]:
+        vit_mod.flash_attention = through_op if name == "op" else k1_mod.flash_attention
+        with torch.no_grad():
+            frame_ms.setdefault(name, []).append(wall_ms(frame, imgs))
+    vit_mod.flash_attention = k1_mod.flash_attention
+    print(f"[engine] the frame B=1 (ViT-S/8 at 224, SLIC 100, per pixel) on the host clock, in turns: K1 through the "
+          f"operator (the engine's route) {[round(t, 3) for t in frame_ms['op']]} ms, through the direct launch "
+          f"{[round(t, 3) for t in frame_ms['direct']]} ms | {card}", flush=True)
+    results["frame_ms"] = frame_ms
+    print(f"[engine] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return results
 
 
 def main() -> int:
@@ -2614,6 +3123,12 @@ def main() -> int:
     # ---- 4i. the parallel layer: the meshed runtime on 4 Gloo ranks, the distributed trainer, NCCL at world size 1
     par = parallel_phase(dev, card, seq, rep["frames"], size, S, D)
 
+    # ---- 4j. the int8 backbones: the product runtime, BASELINE config 5, torch._int_mm's shape rules
+    quant_launches = quant_phase(dev, card, ROOT / "assets/sequences/demo_mission.npz")
+
+    # ---- 4k. the exported engine: the tool at its defaults, an int8_static engine, K1's operator
+    engine = engine_phase(dev, card)
+
     # ---- 5. timings (device time from CUDA events; frame latency on the host clock)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape, what in ATTN_SHAPES.items():
@@ -2748,14 +3263,18 @@ def main() -> int:
                 "torchvision_launches": tv["torchvision_launches"][name],
                 "closed_loop_launches": tv["closed_loop_launches"][name],
                 "offline_launches": offline["offline_launches"][name],
-                "parallel_launches": par["launches"][name]}
+                "parallel_launches": par["launches"][name], "quant_launches": quant_launches[name],
+                "engine_launches": engine["engine_launches"][name]}
                for name, (src, rep) in sources.items()]
     kernels[0]["parallel_tp_rank"] = {"x".join(map(str, shape)): t for shape, t in par["k1"].items()}
     kernels[3]["parallel_dp_rank_16_hulls"] = par["k4_16"]
+    kernels[0]["operator_overhead_us"] = engine["op_overhead_us"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--engine-child"]:
+        sys.exit(engine_child(*sys.argv[2:]))
     sys.exit(main())

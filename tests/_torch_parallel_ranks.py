@@ -27,7 +27,12 @@ from wild_visual_navigation_tpu_torch.parallel import (
 )
 from wild_visual_navigation_tpu_torch.parallel.distributed import _full, masked_batch
 from wild_visual_navigation_tpu_torch.runtime import WVNRuntime, run_replay, synthetic_sequence
-from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import params_checksum, run_mesh_scenario, scenario_params
+from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import (
+    params_checksum,
+    run_mesh_scenario,
+    run_single_frame_scenario,
+    scenario_params,
+)
 from wild_visual_navigation_tpu_torch.traversability.estimator import make_adam
 from wild_visual_navigation_tpu_torch.utils.confidence_generator import confidence_init
 from wild_visual_navigation_tpu_torch.utils.data import TravBatch
@@ -112,6 +117,10 @@ def mesh_rank(rank: int, world: int, path: str) -> dict:
     if rank == 0:
         out["pickle"] = pickle.dumps(rt.estimator)
     out["moving_average"] = moving_average_runtime(create_mesh(dp=4, tp=1, device="cpu"), inputs)
+    rt = WVNRuntime(fe_params=fe, ln_params=ln, buffer_capacity=16, reprojection_fanout=4, mesh=mesh, device="cpu",
+                    backbone_dtype=torch.float32, backbone_params=inputs["backbone"], sampling_seed=42)
+    rt.adopt_train_state(**inputs["train_state"])
+    out["single_frame"] = run_single_frame_scenario(rt)
     return out
 
 

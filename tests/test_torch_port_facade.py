@@ -18,6 +18,7 @@ from wild_visual_navigation_tpu.feature_extractor import feature_extractor as jf
 from wild_visual_navigation_tpu.feature_extractor.dino import DinoInterface as JDino
 from wild_visual_navigation_tpu.ops import segment_ops as jseg
 from wild_visual_navigation_tpu_torch.feature_extractor import feature_extractor as tfe_mod
+from wild_visual_navigation_tpu_torch.models import vit as tvit
 from wild_visual_navigation_tpu_torch.ops import segment_ops as tseg
 from wild_visual_navigation_tpu_torch.ops import slic as tslic
 from wild_visual_navigation_tpu_torch.utils.params import vit_state_from_jax
@@ -173,12 +174,20 @@ def test_static_helpers_match_jax():
     (dict(feature_type="torchvision"), None),
     (dict(feature_type="sift"), None),
     (dict(feature_type="histogram"), None),
-    (dict(quant="int8_static"), "item 28"),
+    (dict(quant="int8_static"), None),
 ], ids=["torchvision", "sift", "histogram", "int8"])
 def test_unported_options_name_their_roadmap_item(kw, item):
     """What is not ported raises naming its ROADMAP.md item; sift and
-    histogram (item 23) are ported and build with their feature dims, and
-    torchvision (item 21) with its ResNet-18 pyramid (960 channels)."""
+    histogram (item 23) are ported and build with their feature dims,
+    torchvision (item 21) with its ResNet-18 pyramid (960 channels), and the
+    int8_static DINO backbone (item 28) with its 48 int8 layers, which a
+    calibration fills."""
+    if "quant" in kw:
+        fe = tfe_mod.FeatureExtractor(device="cpu", input_size=SIZE, **kw)
+        layers = [m for m in fe._extractor.vit.modules() if isinstance(m, tvit.StaticQuantLinear)]
+        assert fe.feature_dim == 384 and len(layers) == 48 and all(float(m.amax) == 0 for m in layers)
+        assert fe.calibrate([_image()]) is True and all(float(m.amax) > 0 for m in layers)
+        return
     if item is None:
         fe = tfe_mod.FeatureExtractor(device="cpu", input_size=SIZE, **kw)
         assert fe.feature_dim == jfe_mod.static_feature_dim(kw["feature_type"])

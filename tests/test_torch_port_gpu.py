@@ -935,3 +935,97 @@ def test_parallel_two_rank_trainer_on_the_card(cuda, capsys):
 
     assert dryrun_multiprocess.main(["--procs", "2", "--device", "cuda"]) == 0
     assert "replicated state consistent" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_static"])
+def test_int8_vit_on_the_card_matches_its_cpu_twin(cuda, quant):
+    """DINO ViT-S/8 at 224 in fp32 with int8 products (torch._int_mm on the
+    card, K1 through its operator) against the same ViT on the CPU, with the
+    card's calibration: int8 rounding flips make the two differ as the CPU
+    tests' port and JAX ViTs do, so the limit is theirs (relative mean error
+    0.04), and the integers of the first layer are equal."""
+    from wild_visual_navigation_tpu_torch.models import vit as tvit
+
+    g = torch.Generator().manual_seed(0)
+    card = tvit.make_vit("dino", "vit_small", 8, dtype=torch.float32, quant=quant, device=cuda, generator=g)
+    x = torch.rand(2, 3, 224, 224, generator=torch.Generator().manual_seed(1))
+    tvit.calibrate_int8_static(card, [x.to(cuda)])  # a no-op for the dynamic ViT
+    cpu = tvit.make_vit("dino", "vit_small", 8, dtype=torch.float32, quant=quant, device="cpu",
+                        state_dict={k: v.cpu() for k, v in card.state_dict().items()})
+    qkv = card.blocks[0].attn.qkv
+    assert torch.equal(qkv.weight_q.cpu(), cpu.blocks[0].attn.qkv.weight_q)
+    assert torch.equal(qkv.weight_scale.cpu(), cpu.blocks[0].attn.qkv.weight_scale)
+    n = port.launch_counts()["flash_attention"]
+    with torch.no_grad():
+        got = card(x.to(cuda))["patch_tokens"].cpu().numpy()
+        want = cpu(x)["patch_tokens"].numpy()
+    assert port.launch_counts()["flash_attention"] == n + 12
+    assert np.isfinite(got).all() and np.abs(got - want).mean() / want.std() < 0.04
+
+
+def test_int_mm_shape_rules_on_the_card(cuda):
+    """torch._int_mm is exact (against an fp64 product) at every Linear of
+    ViT-S/8 at 224 and ViT-B/14 at 644 with B=4; models/quant.py::int_mm
+    pads what the raw call refuses (16 rows, an inner size or a column
+    count that is not a multiple of 8) and stays exact."""
+    from wild_visual_navigation_tpu_torch.models.quant import int_mm
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for M, K, N in [(785, 384, 1152), (785, 384, 384), (785, 384, 1536), (785, 1536, 384),
+                    (8468, 768, 2304), (8468, 768, 768), (8468, 768, 3072), (8468, 3072, 768)]:
+        a = torch.randint(-127, 128, (M, K), device=cuda, dtype=torch.int8, generator=g)
+        b = torch.randint(-127, 128, (K, N), device=cuda, dtype=torch.int8, generator=g)
+        assert torch.equal(torch._int_mm(a, b).double(), a.double() @ b.double())
+        assert torch.equal(int_mm(a, b), torch._int_mm(a, b))
+    a = torch.randint(-127, 128, (16, 380), device=cuda, dtype=torch.int8, generator=g)
+    b = torch.randint(-127, 128, (380, 60), device=cuda, dtype=torch.int8, generator=g)
+    with pytest.raises(RuntimeError):
+        torch._int_mm(a, b)
+    assert torch.equal(int_mm(a, b).double(), a.double() @ b.double())
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "qkv"])
+def test_flash_attention_operator_equals_the_direct_launch(cuda, layout):
+    """K1 through the operator wvn::flash_attention equals the eager call
+    (the operator's body, run directly) bit for bit, and the operator's fake version (what torch.export
+    traces) has the real call's layout: a (B, H, S, D) view of a
+    (B, S, H, D) buffer."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from wild_visual_navigation_tpu_torch.ops import flash_attention as k1
+
+    q, k, v = _qkv(cuda, 2, 6, 785, torch.bfloat16, layout, seed=3)
+    out = k1.flash_attention_op(q, k, v, 0.125)
+    assert torch.equal(out, k1.flash_attention(q, k, v, 0.125))
+    with FakeTensorMode() as mode:
+        fake = torch.ops.wvn.flash_attention(*(mode.from_tensor(t) for t in (q, k, v)), 0.125)
+    assert (fake.shape, fake.dtype, fake.stride(), fake.device) == (out.shape, out.dtype, out.stride(), out.device)
+
+
+@pytest.mark.parametrize("quant", [None, "int8_static"])
+def test_exported_engine_equals_eager_on_the_card(cuda, tmp_path, quant):
+    """The export tool's pipeline (DINOv2 ViT-S/14 at 224, bf16), exported,
+    saved and loaded again: bit for bit the eager pipeline, K1 12 launches
+    per call, another shape refused, flops within 1 % of 2·M·N·K plus
+    attention."""
+    from wild_visual_navigation_tpu_torch.feature_extractor import aot_engine
+    from wild_visual_navigation_tpu_torch.models.vit import calibrate_int8_static
+    from wild_visual_navigation_tpu_torch.tools.export_engine import build_pipeline, export_pipeline, pipeline_flops
+
+    pipe = build_pipeline(device=cuda, quant=quant)
+    x = torch.rand(1, 3, 224, 224, generator=torch.Generator().manual_seed(2)).to(cuda)
+    calibrate_int8_static(pipe.vit, [x])
+    eng = export_pipeline(pipe, 224, 1)
+    spec = str(tmp_path / "engine.spec")
+    aot_engine.save_engine_spec(spec, {"vit": pipe.vit.state_dict()}, eng.input_shape, str(eng.input_dtype), {},
+                                program=eng.program)
+    loaded = aot_engine.load_engine(spec)
+    n = port.launch_counts()["flash_attention"]
+    out = loaded(x)
+    assert port.launch_counts()["flash_attention"] == n + 12
+    with torch.no_grad():
+        assert torch.equal(out, pipe(x))
+    with pytest.raises(ValueError, match="AOTEngine expects"):
+        loaded(torch.zeros(1, 3, 238, 238, device=cuda))
+    assert abs(loaded.flops / pipeline_flops(pipe, 224, 1) - 1) < 0.01
+    assert loaded.memory_analysis()["peak_bytes"] > 0

@@ -44,7 +44,12 @@ from wild_visual_navigation_tpu_torch.models.registry import get_model
 from wild_visual_navigation_tpu_torch.parallel import create_mesh, mlp_param_spec, vit_param_spec
 from wild_visual_navigation_tpu_torch.parallel.launch import run_ranks
 from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
-from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import run_mesh_scenario, scenario_inputs, scenario_params
+from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import (
+    run_mesh_scenario,
+    run_single_frame_scenario,
+    scenario_inputs,
+    scenario_params,
+)
 from wild_visual_navigation_tpu_torch.utils.params import mlp_state_from_jax, train_state_from_jax, vit_state_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -212,6 +217,10 @@ def mesh_run(tmp_path_factory):
     rt.adopt_train_state(**train_state)
     single = run_mesh_scenario(rt)
     single.update(buffer_features=rt.estimator.buffer.features.numpy(), signal=rt.estimator.buffer.signal.numpy())
+    rt = WVNRuntime(fe_params=fe, ln_params=ln, buffer_capacity=16, reprojection_fanout=4, device="cpu",
+                    backbone_dtype=torch.float32, backbone_params=backbone, sampling_seed=42)
+    rt.adopt_train_state(**train_state)
+    single["single_frame"] = run_single_frame_scenario(rt)
     return {"ranks": out, "single": single, "moving_average": ranks.moving_average_runtime(None, inputs), "jax": _jax_scenario(jrt), "mlp_params": mlp_params, "jm": jm,
             "batch": (x, y, yv, sv), "vit": np.asarray(jvit.dense_features(jv, vit_params, vit_x)), "vit_x": vit_x}
 
@@ -293,6 +302,20 @@ def test_meshed_runtime_matches_unmeshed(mesh_run):
     for a, b in zip(single["trav"], jx["trav"]):
         np.testing.assert_allclose(a, b, atol=MAP_ATOL)
     np.testing.assert_allclose(single["losses"], jx["losses"], rtol=1e-4)
+
+
+def test_meshed_single_frame_callback_matches_unmeshed(mesh_run):
+    """image_callback, one frame at a time, on the (2, 2) mesh: each rank
+    runs the tp ViT on its 3 heads of the one frame (K1 through its
+    operator) and the whole frame step; held to the unmeshed runtime as
+    the meshed runtime is: buffer features atol 1e-5, maps MAP_ATOL."""
+    want = mesh_run["single"]["single_frame"]
+    assert len(want["trav"]) == 8
+    for r in mesh_run["ranks"]:
+        got = r["single_frame"]
+        np.testing.assert_allclose(got["features"], want["features"], atol=STATE_ATOL)
+        for a, b in zip(got["trav"] + got["conf"], want["trav"] + want["conf"]):
+            np.testing.assert_allclose(a, b, atol=MAP_ATOL)
 
 
 def test_meshed_moving_average_with_a_padded_batch(mesh_run):

@@ -34,6 +34,7 @@ from wild_visual_navigation_tpu.runtime import run_replay as jrun_replay
 from wild_visual_navigation_tpu_torch import launch_counts
 from wild_visual_navigation_tpu_torch.cfg import experiment as tcfg_exp
 from wild_visual_navigation_tpu_torch.cfg import node_params as tcfg_node
+from wild_visual_navigation_tpu_torch.models import vit as tvit
 from wild_visual_navigation_tpu_torch.ops import _cuda
 from wild_visual_navigation_tpu_torch.parallel import DistributedTrainer, create_mesh
 from wild_visual_navigation_tpu_torch.runtime import WVNRuntime, run_replay, synthetic_sequence
@@ -456,6 +457,13 @@ def _anomaly_runtime():
     return WVNRuntime(**kw, anomaly_detection=True)
 
 
+def _calibrated(rt):
+    """rt after calibrate_backbone on two seeded frames, which must say True."""
+    rng = np.random.default_rng(0)
+    assert rt.calibrate_backbone([rng.random((1, 3, SIZE, SIZE), dtype=np.float32) for _ in range(2)]) is True
+    return rt
+
+
 def _world_of_one(build):
     """build() inside a Gloo process group of one rank (the mesh and the
     distributed trainer need a group), left before returning."""
@@ -476,18 +484,22 @@ def _world_of_one(build):
     (lambda: WVNRuntime(**_runtime_kw(False), gridmap_size=64), None),
     (lambda: _anomaly_runtime(), None),
     (lambda: WVNRuntime(**_runtime_kw(True, feature_type="torchvision")), None),
-    (lambda: WVNRuntime(**_runtime_kw(True, dino_quant="int8")), "item 28"),
+    (lambda: WVNRuntime(**_runtime_kw(True, dino_quant="int8")), None),
     (lambda: _world_of_one(lambda: WVNRuntime(**_runtime_kw(False)).attach_distributed_trainer()), None),
     (lambda: WVNRuntime(**_runtime_kw(False)).get_carrot(), None),
-    (lambda: WVNRuntime(**_runtime_kw(False, dino_quant="int8")).calibrate_backbone([]), "item 28"),
+    (lambda: _calibrated(WVNRuntime(**_runtime_kw(True, dino_quant="int8_static"))), None),
     (lambda: WVNRuntime(**_runtime_kw(False)).export_supervision_markers(), None),
-], ids=["mesh", "gridmap", "anomaly", "torchvision", "int8", "distributed", "carrot", "calibrate", "markers"])
+    (lambda: _world_of_one(lambda: WVNRuntime(**_runtime_kw(False, dino_quant="int8"), mesh=create_mesh(device="cpu"))),
+     "item 28b"),
+], ids=["mesh", "gridmap", "anomaly", "torchvision", "int8", "distributed", "carrot", "calibrate", "markers",
+        "mesh-int8"])
 def test_unported_options_raise_naming_their_item(build, item):
-    """What is not ported raises naming its ROADMAP.md item; anomaly mode
-    (item 22), the supervision markers (item 23), the torchvision branch
-    (item 21), the grid map with its carrot (item 24), and the mesh and the
-    distributed trainer (item 27, here in a process group of one rank) are
-    ported and run."""
+    """What is not ported raises naming its ROADMAP.md item: a quantised
+    backbone under a mesh (item 28b). Anomaly mode (item 22), the
+    supervision markers (item 23), the torchvision branch (item 21), the
+    grid map with its carrot (item 24), the mesh and the distributed trainer
+    (item 27, here in a process group of one rank), and the int8 backbones
+    with calibrate_backbone (item 28) are ported and run."""
     if item is None:
         out = build()
         if isinstance(out, DistributedTrainer):  # a ("dp",) mesh over the one rank, no step yet
@@ -499,6 +511,12 @@ def test_unported_options_raise_naming_their_item(build, item):
         elif isinstance(out, WVNRuntime) and out.gridmap is not None:  # a 64 x 64 grid of 0.1 m around the origin
             assert tuple(out.gridmap.weight.shape) == (64, 64) and not bool(out.gridmap.valid.any())
             np.testing.assert_array_equal(out.gridmap.origin_xy, np.float32([-3.2, -3.2]))
+        elif isinstance(out, WVNRuntime) and out.fe_params.dino_quant is not None:  # the int8 ViT-S/8 in the frame
+            vit = out.feature_extractor._extractor.vit
+            kind = tvit.StaticQuantLinear if out.fe_params.dino_quant == "int8_static" else tvit.QuantLinear
+            layers = [m for m in vit.modules() if isinstance(m, tvit.QuantLinear)]
+            assert len(layers) == 48 and all(type(m) is kind for m in layers) and out._fused_frame is not None
+            assert kind is tvit.QuantLinear or all(float(m.amax) > 0 for m in layers)  # calibrated
         elif isinstance(out, WVNRuntime):  # torchvision x grid: the fused CNN-pyramid frame
             assert out._fused_frame is not None and out._D == 960
         elif isinstance(out, tuple):  # no grid map: no carrot
@@ -506,7 +524,7 @@ def test_unported_options_raise_naming_their_item(build, item):
         else:  # no robot state yet: an empty ribbon
             assert out.num_triangles == 0 and out.points.shape == (0, 3)
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1, {item}"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         build()
 
 

@@ -91,9 +91,8 @@ class FeatureExtractorNodeParams:
     feature_type: str = "dino"
     dino_patch_size: int = 8
     dino_backbone: str = "vit_small"
-    # Backbone quantization of the JAX package (its models/quant.py):
-    # None (bf16), "int8" or "int8_static". The torch port runs None only;
-    # int8 is ROADMAP.md Queue 1, item 28.
+    # Backbone quantization (models/quant.py): None (bf16), "int8" or
+    # "int8_static" (calibrate with WVNRuntime.calibrate_backbone).
     dino_quant: Any = None
     slic_num_components: int = 100
     grid_cell_size: int = 32  # grid-segmentation cell edge (this framework)

@@ -66,9 +66,6 @@ class FeatureExtractor:
         as in the JAX package)."""
         if segmentation_type == "stego" and feature_type != "stego":
             raise ValueError(f"segmentation_type [stego] needs feature_type [stego] (got [{feature_type}])")
-        if kwargs.get("quant") is not None:
-            raise NotImplementedError(f"backbone quantization [{kwargs['quant']}] is not ported to torch "
-                                      "(ROADMAP.md Queue 1, item 28)")
         self._segmentation_type = segmentation_type
         self._feature_type = feature_type
         self._input_size = input_size
@@ -100,6 +97,7 @@ class FeatureExtractor:
                 dtype=kwargs.get("dtype", torch.bfloat16),
                 device=self.device,
                 seed=seed,
+                quant=kwargs.get("quant"),
             )
             self._feature_dim = self._extractor.feature_dim
         elif feature_type == "torchvision":
@@ -144,8 +142,11 @@ class FeatureExtractor:
         return self._segmentation_type
 
     def calibrate(self, sample_batches) -> bool:
-        """No backbone of the port is statically quantized: always False."""
-        return False
+        """Calibrate a statically quantised backbone (quant="int8_static",
+        the dino modes only) on (B, 3, H, W) RGB frames in [0, 1], once
+        before inference; False, doing nothing, for every other backbone."""
+        calibrate = getattr(self._extractor, "calibrate", None)
+        return calibrate(sample_batches) if calibrate is not None else False
 
     def num_segments(self, height: int, width: int) -> int:
         """Static per-image segment capacity for the configured mode."""

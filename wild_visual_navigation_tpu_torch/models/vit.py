@@ -13,15 +13,34 @@ plus a matrix product, so no cuDNN convolution (and its default TF32)
 is involved.
 
 attention_impl:
-  * "flash" — ops/flash_attention.py::flash_attention, kernel K1 on
-    CUDA tensors at every shape (the plain version on CPU tensors);
-  * "eager" — the plain einsum/softmax/einsum form.
+  * "flash" — ops/flash_attention.py::flash_attention, kernel K1 on CUDA
+    tensors at every shape (the plain version on CPU tensors); under
+    torch.export the operator `wvn::flash_attention`;
+  * "eager" — the plain einsum/softmax/einsum form;
+  * "xla_int8" — both attention products in int8
+    (models/quant.py::attention_scores_int8).
+
+quant (the JAX package's W8A8 backbone, models/quant.py): "int8" puts
+qkv, proj, fc1 and fc2 on int8 products with a per-call activation scale,
+"int8_static" with a calibrated one (`calibrate_int8_static`); the patch
+embedding and the LayerNorms stay as they are. The parameters keep the fp
+ViT's names and shapes, so fp checkpoints load as they are, but the
+quantised layers hold their weights in fp32, as the JAX package quantises
+its fp32 kernels. The backbone is frozen, so each layer quantises its
+weight once, into non-persistent buffers that a load_state_dict refreshes;
+a static layer's activation abs-max is a persistent buffer `amax`, zero
+until calibrated (a checkpoint without it loads with zeros, as JAX seeds
+the missing "quant_cal" collection).
 
 Tensor parallelism (`shard_heads_`, forward only): each rank of a tp
 process group keeps the qkv rows and proj columns of its own heads and its
 rows of fc1 and columns of fc2, as plain tensors. Attention (K1 on the
 rank's heads) needs no collective; one all_reduce follows proj and one
-follows fc2, in fp32, and their biases are added once, after the sum.
+follows fc2, in fp32, and their biases are added once, after the sum. A
+quantised ViT is refused (ROADMAP.md item 28b): JAX's sharded program
+takes the weight scales of a column cut and the activation abs-max of a
+row-parallel input over the whole tensor, which a rank-local slice would
+not.
 """
 
 from __future__ import annotations
@@ -35,6 +54,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..ops.flash_attention import flash_attention, xla_attention
+from .quant import attention_scores_int8, int8_matmul_scaled, quantize_symmetric, quantize_with_scale
 from .simple_mlp import lecun_normal_
 
 
@@ -61,10 +81,81 @@ VIT_CONFIGS = {
     "dinov2_vit_large_14": ViTConfig(patch_size=14, embed_dim=1024, depth=24, num_heads=16),
 }
 
-ATTENTION_IMPLS = ("flash", "eager")
+ATTENTION_IMPLS = ("flash", "eager", "xla_int8")
+QUANT_MODES = (None, "int8", "int8_static")
 
 
-def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+class QuantLinear(nn.Module):
+    """nn.Linear's parameters (fp32) with the product in int8: the weight
+    per output channel, the activation per call, as it arrives (fp32 from
+    a LayerNorm, the compute type after attention or GELU); the output in
+    `dtype`. The counterpart of JAX's QuantDense."""
+
+    def __init__(self, in_features: int, out_features: int, dtype, device):
+        super().__init__()
+        self.in_features, self.out_features, self.dtype = in_features, out_features, dtype
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        self.register_buffer("weight_q", torch.zeros(out_features, in_features, dtype=torch.int8, device=device),
+                             persistent=False)  # (out, in): the (in, out) operand column-major, as cuBLASLt takes it
+        self.register_buffer("weight_scale", torch.ones(1, out_features, device=device), persistent=False)
+        self.register_load_state_dict_post_hook(lambda module, _: module.refresh_())
+
+    @torch.no_grad()
+    def refresh_(self) -> None:
+        """Quantise the weight again (after its values changed)."""
+        if self.weight.device.type == "meta":
+            return
+        wq, sw = quantize_symmetric(self.weight.float().t(), dim=0)  # per output channel of the flax (in, out) kernel
+        self.weight_q, self.weight_scale = wq.t().contiguous(), sw
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xq, sx = quantize_symmetric(x)
+        return int8_matmul_scaled(xq, sx, self.weight_q.t(), self.weight_scale, self.bias).to(self.dtype)
+
+
+class StaticQuantLinear(QuantLinear):
+    """QuantLinear with a calibrated activation scale, max(amax / 127,
+    1e-12), computed once per calibration. While `calibrating` it records
+    amax = max(amax, max |x|) and computes as QuantLinear does. The
+    counterpart of JAX's StaticQuantDense."""
+
+    def __init__(self, in_features: int, out_features: int, dtype, device):
+        super().__init__(in_features, out_features, dtype, device)
+        self.calibrating = False
+        self.register_buffer("amax", torch.zeros((), device=device))
+        self.register_buffer("x_scale", torch.full((), 1e-12, device=device), persistent=False)
+        self._register_load_state_dict_pre_hook(self._default_amax)
+
+    @staticmethod
+    def _default_amax(state_dict, prefix, *args) -> None:
+        state_dict.setdefault(prefix + "amax", torch.zeros(()))
+
+    @torch.no_grad()
+    def refresh_(self) -> None:
+        super().refresh_()
+        if self.amax.device.type != "meta":
+            self.x_scale = torch.clamp(self.amax / torch.full_like(self.amax, 127.0), min=1e-12)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.calibrating:
+            self.amax.copy_(torch.maximum(self.amax, x.abs().amax().float()))
+            return super().forward(x)
+        xq = quantize_with_scale(x, self.x_scale)
+        return int8_matmul_scaled(xq, self.x_scale, self.weight_q.t(), self.weight_scale, self.bias).to(self.dtype)
+
+
+def _make_linear(quant: Optional[str], in_features: int, out_features: int, dtype, device) -> nn.Module:
+    if quant == "int8":
+        return QuantLinear(in_features, out_features, dtype, device)
+    if quant == "int8_static":
+        return StaticQuantLinear(in_features, out_features, dtype, device)
+    return nn.Linear(in_features, out_features, device=device, dtype=dtype)
+
+
+def _linear(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
+    if isinstance(lin, QuantLinear):
+        return lin(x)
     return nn.functional.linear(x.to(lin.weight.dtype), lin.weight, lin.bias)
 
 
@@ -80,7 +171,7 @@ def _row_parallel(x: torch.Tensor, lin: nn.Linear, group) -> torch.Tensor:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ViTConfig, attention_impl: str, dtype, device):
+    def __init__(self, cfg: ViTConfig, attention_impl: str, dtype, device, quant: Optional[str] = None):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
@@ -89,26 +180,26 @@ class Attention(nn.Module):
         self.head_dim = D // cfg.num_heads
         self.attention_impl = attention_impl
         self.tp_group = None
-        self.qkv = nn.Linear(D, 3 * D, device=device, dtype=dtype)
-        self.proj = nn.Linear(D, D, device=device, dtype=dtype)
+        self.qkv = _make_linear(quant, D, 3 * D, dtype, device)
+        self.proj = _make_linear(quant, D, D, dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, _ = x.shape
         H, Dh = self.num_heads, self.head_dim
         qkv = _linear(x, self.qkv).reshape(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.unbind(0)  # (B, H, N, Dh) views of the qkv product, no copies
-        attend = flash_attention if self.attention_impl == "flash" else xla_attention
-        out = attend(q, k, v, Dh**-0.5)
+        attend = {"flash": flash_attention, "eager": xla_attention, "xla_int8": attention_scores_int8}
+        out = attend[self.attention_impl](q, k, v, Dh**-0.5)
         # K1 writes a (B, N, H, Dh) buffer, so on the card this is a view
         return _row_parallel(out.transpose(1, 2).reshape(B, N, H * Dh), self.proj, self.tp_group)
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: ViTConfig, dtype, device):
+    def __init__(self, cfg: ViTConfig, dtype, device, quant: Optional[str] = None):
         super().__init__()
         hidden = int(cfg.embed_dim * cfg.mlp_ratio)
-        self.fc1 = nn.Linear(cfg.embed_dim, hidden, device=device, dtype=dtype)
-        self.fc2 = nn.Linear(hidden, cfg.embed_dim, device=device, dtype=dtype)
+        self.fc1 = _make_linear(quant, cfg.embed_dim, hidden, dtype, device)
+        self.fc2 = _make_linear(quant, hidden, cfg.embed_dim, dtype, device)
         self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -125,13 +216,13 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig, attention_impl: str, dtype, device):
+    def __init__(self, cfg: ViTConfig, attention_impl: str, dtype, device, quant: Optional[str] = None):
         super().__init__()
         D = cfg.embed_dim
         self.norm1 = nn.LayerNorm(D, eps=cfg.ln_eps, device=device)
-        self.attn = Attention(cfg, attention_impl, dtype, device)
+        self.attn = Attention(cfg, attention_impl, dtype, device, quant)
         self.norm2 = nn.LayerNorm(D, eps=cfg.ln_eps, device=device)
-        self.mlp = Mlp(cfg, dtype, device)
+        self.mlp = Mlp(cfg, dtype, device, quant)
         ls = cfg.layerscale_init is not None
         self.ls1 = LayerScale(D, cfg.layerscale_init, device) if ls else nn.Identity()
         self.ls2 = LayerScale(D, cfg.layerscale_init, device) if ls else nn.Identity()
@@ -200,13 +291,17 @@ class PatchEmbed(nn.Module):
 
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, attention_impl: str = "flash", dtype: torch.dtype = torch.bfloat16,
-                 device=None, generator: torch.Generator | None = None, state_dict: dict | None = None):
+                 device=None, generator: torch.Generator | None = None, state_dict: dict | None = None,
+                 quant: Optional[str] = None):
         """Weights from `state_dict` where one is given (the layers are
         then built on the meta device, so no initialiser runs), else the
-        seeded draw of reset_parameters."""
+        seeded draw of reset_parameters. `quant`: one of QUANT_MODES."""
         super().__init__()
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
         self.cfg = cfg
         self.dtype = dtype
+        self.quant = quant
         D = cfg.embed_dim
         build = device if state_dict is None else "meta"
         self.patch_embed = PatchEmbed(cfg, dtype, build)
@@ -214,7 +309,7 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid_size**2, D, device=build))
         if cfg.num_register_tokens:
             self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, D, device=build))
-        self.blocks = nn.ModuleList(Block(cfg, attention_impl, dtype, build) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(Block(cfg, attention_impl, dtype, build, quant) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(D, eps=cfg.ln_eps, device=build)
         if state_dict is None:
             self.reset_parameters(generator)
@@ -239,6 +334,9 @@ class VisionTransformer(nn.Module):
                 p.fill_(1.0)
             else:
                 p.zero_()
+        for m in self.modules():
+            if isinstance(m, QuantLinear):
+                m.refresh_()
 
     def forward(self, img: torch.Tensor) -> dict:
         """img: (B, 3, H, W) normalised -> {patch_tokens (B, hp·wp, D) fp32,
@@ -260,6 +358,25 @@ class VisionTransformer(nn.Module):
         x = self.norm(x.float())
         n_prefix = 1 + cfg.num_register_tokens
         return {"patch_tokens": x[:, n_prefix:], "cls_token": x[:, 0], "grid": (hp, wp)}
+
+
+@torch.no_grad()
+def calibrate_int8_static(vit: VisionTransformer, sample_batches) -> VisionTransformer:
+    """Record each StaticQuantLinear's activation abs-max over the (B, 3, H,
+    W) normalised batches, in place (running max over the batches, on top
+    of what the layers held), and refresh their scales. The counterpart of
+    JAX's calibrate_int8_static, which returns the updated variables."""
+    layers = [m for m in vit.modules() if isinstance(m, StaticQuantLinear)]
+    for m in layers:
+        m.calibrating = True
+    try:
+        for imgs in sample_batches:
+            vit(imgs)
+    finally:
+        for m in layers:
+            m.calibrating = False
+            m.refresh_()
+    return vit
 
 
 def _keep(lin: nn.Linear, rows=None, cols=None) -> None:
@@ -284,6 +401,9 @@ def shard_heads_(vit: VisionTransformer, group, rank: int, tp: int, spec: dict) 
     start from the same full weights. Forward only."""
     from torch.distributed.tensor import Shard
 
+    if vit.quant is not None:
+        raise NotImplementedError(f"tensor parallelism of a quantised ViT [{vit.quant}] is not ported to torch yet "
+                                  "(ROADMAP.md item 28b)")
     for i, blk in enumerate(vit.blocks):
         attn, mlp = blk.attn, blk.mlp
         if isinstance(spec.get(f"blocks.{i}.attn.qkv.weight"), Shard):
@@ -314,10 +434,11 @@ def dense_features(vit: VisionTransformer, img: torch.Tensor) -> torch.Tensor:
 
 def make_vit(backbone: str = "dinov2", backbone_type: str = "vit_small", patch_size: int = 14,
              attention_impl: str = "flash", dtype: torch.dtype = torch.bfloat16, device=None,
-             generator: torch.Generator | None = None, state_dict: dict | None = None) -> VisionTransformer:
+             generator: torch.Generator | None = None, state_dict: dict | None = None,
+             quant: Optional[str] = None) -> VisionTransformer:
     """Instantiate by the reference's (backbone, backbone_type, patch_size)."""
     key = f"{backbone}_vit_{backbone_type.replace('vit_', '')}_{patch_size}"
     if key not in VIT_CONFIGS:
         raise ValueError(f"Unknown ViT config {key}; have {sorted(VIT_CONFIGS)}")
     return VisionTransformer(VIT_CONFIGS[key], attention_impl=attention_impl, dtype=dtype, device=device,
-                             generator=generator, state_dict=state_dict)
+                             generator=generator, state_dict=state_dict, quant=quant)

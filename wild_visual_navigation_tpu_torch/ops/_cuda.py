@@ -11,7 +11,10 @@ module and a CPU tensor never reaches this file.
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check` raises on anything but 0. ptxas reports each kernel's registers,
 shared memory and spills while compiling (`-Xptxas -v`); the build keeps
-that report beside the library (`resource_report`).
+that report beside the library (`resource_report`). The build directory
+is csrc/_build/ unless `set_build_dir` names another before the library
+is loaded (feature_extractor/aot_engine.py::enable_persistent_cache): a
+process that finds the hashed library there runs no nvcc.
 """
 
 from __future__ import annotations
@@ -60,6 +63,18 @@ _lib_lock = threading.Lock()  # one build and one binding, whichever thread laun
 _count_lock = threading.Lock()  # the wrappers' `launches` counters
 build_seconds: float | None = None  # wall time of this process's nvcc call, if it made one
 builds = 0  # nvcc builds this process ran (a steady run makes none after its first launch)
+
+
+def set_build_dir(path) -> Path:
+    """Build into and load from `path` from now on. Raises once the
+    library is loaded: this process keeps the one it has."""
+    global BUILD_DIR
+    with _lib_lock:
+        if _lib is not None:
+            raise RuntimeError(f"the kernel library is already loaded from {BUILD_DIR}; set the build directory "
+                               "before the first launch")
+        BUILD_DIR = Path(path).resolve()
+    return BUILD_DIR
 
 
 def _nvcc() -> str:

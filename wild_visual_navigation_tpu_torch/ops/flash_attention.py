@@ -9,6 +9,19 @@ strides for B, H and S, e.g. the slices of a (B, S, 3, H, D) qkv product),
 and the output is a (B, H, S, D) view of a (B, S, H, D) buffer, so
 `out.transpose(1, 2)` is contiguous. bf16 runs on the tensor cores
 (wgmma, TMA loads), fp32 on the SIMT pipes.
+
+The kernel is also the custom operator `wvn::flash_attention`
+(torch.library.custom_op), so `torch.export` records it as one node of the
+graph (feature_extractor/aot_engine.py) and an exported program runs it
+again when loaded. Its fake (shape-only) version gives the layout the real
+call returns on each device: on CUDA the (B, H, S, D) view of a
+(B, S, H, D) buffer, on the CPU a contiguous tensor. `flash_attention` is
+the one entry point: under torch.export it calls the operator; eager calls
+run the operator's body directly, because the dispatcher's cost (23 to 37
+µs per call on the card's host, 0.27 to 0.45 ms over a frame's 12 calls,
+and 0.4 to 4.9 ms of frame time in paired runs; NVIDIA H100 80GB HBM3,
+chip_smoke.py phase 4k) is more than the 0.3 ms per frame the port allows
+it.
 """
 
 from __future__ import annotations
@@ -58,15 +71,8 @@ def _outer_strides(name: str, t: torch.Tensor) -> list[int]:
     return strides
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float = 1.0) -> torch.Tensor:
-    """softmax(q kᵀ · sm_scale) v. q, k, v: (B, H, S, D).
-
-    CUDA tensors run kernel K1 (D = 64, bf16 or fp32) or raise; CPU
-    tensors take the plain version."""
-    if q.device.type == "cpu":
-        return xla_attention(q, k, v, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """K1 on CUDA tensors (D = 64, bf16 or fp32), or raise."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"flash_attention: q, k, v must share one (B, H, S, D) shape, got {q.shape}, {k.shape}, {v.shape}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -87,6 +93,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale:
     _cuda.check(err, "flash_attention")
     _cuda.count_launch(flash_attention)
     return out
+
+
+def _flash_attention_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float) -> torch.Tensor:
+    """The operator's body: K1 for CUDA tensors, the plain version
+    (contiguous) for CPU tensors."""
+    if q.device.type == "cpu":
+        return xla_attention(q, k, v, sm_scale).contiguous()
+    return _launch(q, k, v, sm_scale)
+
+
+flash_attention_op = torch.library.custom_op("wvn::flash_attention", _flash_attention_body, mutates_args=())
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, sm_scale):
+    B, H, S, D = q.shape
+    if q.device.type == "cuda":
+        return q.new_empty((B, S, H, D)).transpose(1, 2)
+    return q.new_empty((B, H, S, D))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float = 1.0) -> torch.Tensor:
+    """softmax(q kᵀ · sm_scale) v. q, k, v: (B, H, S, D); under
+    torch.export the operator `wvn::flash_attention`.
+
+    CUDA tensors run kernel K1 (D = 64, bf16 or fp32) or raise; CPU
+    tensors take the plain version."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.compiler.is_exporting():
+        return flash_attention_op(q, k, v, float(sm_scale))
+    return _flash_attention_body(q, k, v, float(sm_scale))
 
 
 flash_attention.launches = 0

@@ -14,7 +14,9 @@ defaults: ViT-S/8 at 224, SLIC 100, per-pixel prediction) with the same
 learning gates. `run_mesh_scenario` returns what the check compares: each
 step's traversability and confidence maps, the 5 losses, the head's params,
 and a checksum of the params (sum of absolute values), which the ranks of
-a mesh must agree on.
+a mesh must agree on. `run_single_frame_scenario` sends the same cameras'
+frames one at a time through `image_callback`, the route on which a tp mesh
+runs its ViT on one frame.
 """
 
 from __future__ import annotations
@@ -82,3 +84,19 @@ def run_mesh_scenario(rt, steps: int = 3, n_train: int = 5) -> dict:
     return {"trav": trav, "conf": conf, "losses": losses,
             "params": {k: v.detach().cpu().clone().numpy() for k, v in params.items()},
             "checksum": params_checksum(params)}
+
+
+def run_single_frame_scenario(rt, steps: int = 2) -> dict:
+    """The scenario's frames through `image_callback`, one camera at a
+    time, for `steps` steps: {"trav": [(H, W)] per call, "conf": likewise,
+    "features": the mission buffer's features afterwards}."""
+    imgs, Ks, Tc = scenario_inputs()
+    trav, conf = [], []
+    for step in range(steps):
+        for i in range(CAMERAS):
+            pose = np.eye(4)
+            pose[0, 3] = step * 0.5 + i * 0.1
+            res = rt.image_callback(imgs[i] + step * 0.01, step + 0.1 * i, f"cam{i}", Ks[i], 40, 40, pose, Tc)
+            trav.append(res.traversability.float().cpu().numpy())
+            conf.append(res.confidence.float().cpu().numpy())
+    return {"trav": trav, "conf": conf, "features": rt.estimator.buffer.features.float().cpu().numpy()}

@@ -42,8 +42,12 @@ supervision fan-out and the train step's nodes over dp.
 `attach_distributed_trainer` joins the learning step to the collective
 step of parallel/distributed.py::DistributedTrainer instead.
 
-Not ported yet, and raising NotImplementedError naming its ROADMAP.md
-item: int8 backbones and `calibrate_backbone` with them (28).
+With `dino_quant` ("int8" or "int8_static", models/quant.py) the DINO
+backbone runs its linear layers on int8 products; a static one is
+calibrated in place by `calibrate_backbone`, and the fused frame, which
+holds the ViT module itself, computes with the new scales from its next
+call. Not ported yet, and raising NotImplementedError naming its
+ROADMAP.md item: a quantised backbone under a mesh (28b).
 """
 
 from __future__ import annotations
@@ -179,6 +183,8 @@ class WVNRuntime:
         JAX one). `mesh`: a ("dp", "tp") DeviceMesh over the ranks that
         run this runtime together (see the module's docstring)."""
         self._device = torch_device(device, "WVNRuntime")
+        if mesh is not None and fe_params is not None and fe_params.dino_quant is not None:
+            raise _not_ported(f"a quantised backbone [{fe_params.dino_quant}] under a mesh", "item 28b")
         self.mesh = mesh
         self._dist_trainer = None
 
@@ -397,10 +403,13 @@ class WVNRuntime:
 
     # --------------------------------------------------------- inference
     def calibrate_backbone(self, sample_batches) -> bool:
-        """No-op returning False: the port's backbones are not quantized."""
-        if self.fe_params.dino_quant is not None:
-            raise _not_ported(f"backbone quantization [{self.fe_params.dino_quant}]", "Queue 1, item 28")
-        return False
+        """Calibrate a statically quantised backbone (fe_params.dino_quant ==
+        "int8_static") on (B, 3, H, W) RGB frames in [0, 1], through the
+        facade, in place: the fused frame holds the same ViT module, so its
+        next call computes with the recorded scales. Call it before real
+        inference. False, doing nothing, for any other backbone."""
+        fe = self.feature_extractor
+        return fe is not None and fe.calibrate(sample_batches)
 
     def _to_device(self, img) -> torch.Tensor:
         """Upload a host frame as it is (uint8 stays uint8: the frame

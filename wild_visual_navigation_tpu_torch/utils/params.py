@@ -66,8 +66,12 @@ def _norm(dst: dict, prefix: str, node: Mapping) -> None:
 
 
 def vit_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
-    """flax VisionTransformer params -> models/vit.py state_dict."""
+    """flax VisionTransformer params -> models/vit.py state_dict. A
+    "quant_cal" collection beside "params" (a calibrated int8_static ViT)
+    becomes the `amax` buffers of qkv, proj, fc1 and fc2; without one, a
+    static ViT loads with zero `amax`, as JAX seeds the collection."""
     p = _inner(params)
+    cal = params.get("quant_cal", {})
     sd: dict[str, torch.Tensor] = {}
     for name in ("cls_token", "pos_embed", "register_tokens"):
         if name in p:
@@ -87,6 +91,10 @@ def vit_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
         for ls in ("ls1", "ls2"):
             if f"{ls}_gamma" in blk:
                 sd[f"{pre}.{ls}.gamma"] = _t(blk[f"{ls}_gamma"])
+        for mod, layers in (("attn", ("qkv", "proj")), ("mlp", ("fc1", "fc2"))):
+            for layer in layers:
+                if f"block_{i}" in cal:
+                    sd[f"{pre}.{mod}.{layer}.amax"] = _t(cal[f"block_{i}"][mod][layer]["amax"])
         i += 1
     return sd
 
