@@ -79,7 +79,14 @@ PyTorch version at the main path's shapes, and drives these paths:
     rows; a (1, 1) mesh over NCCL against no mesh; the callbacks' and the
     trainer's times, and K1 and K4 at the ranks' shapes; and image_callback
     one frame at a time on the (2, 2) mesh (K1 on (1, 3, 785, 64)) against
-    the unmeshed runtime;
+    the unmeshed runtime; then the same product runtime with
+    dino_quant="int8_static" (calibrated on every rank with the scenario's
+    frames) and "int8" on the (2, 2) mesh against the unmeshed runtimes on
+    the same weights at the int8 limits, its amax buffers equal to the
+    unmeshed calibration's, its all_reduces per ViT forward counted (24
+    int32 sums; 48 maxima for "int8", 36 more with "xla_int8" attention),
+    and image_batch_callback B=4 per rank in turns with the meshed bf16
+    runtime;
   * the int8 backbones ([quant] lines): WVNRuntime at the product's
     settings with dino_quant="int8_static", calibrated on the first 2 demo
     frames, replaying the mission in turns with the bf16 runtime on the
@@ -91,13 +98,17 @@ PyTorch version at the main path's shapes, and drives these paths:
     K1, the fp products and the rest; torch._int_mm exact at every Linear of
     ViT-S/8, ViT-S/14 and ViT-B/14 and the shapes its raw call refuses; and
     attention_scores_int8 within JAX's band;
-  * the exported engine ([engine] lines): `python -m
+  * the compiled engine ([engine] lines): `python -m
     wild_visual_navigation_tpu_torch.tools.export_engine` at its defaults
     (DINOv2 ViT-S/14 at 224) and an int8_static engine built through the
-    API, each loaded in a fresh process (this script with --engine-child)
-    and held to the eager pipeline bit for bit, refusing another shape, its
-    flops against the analytic count, its memory; whether `import triton`
-    works; and K1's operator against the direct call, per call and in the
+    API, each compiled by AOTInductor and loaded in a fresh process (this
+    script with --engine-child) that builds and compiles nothing, each call
+    launching K1 12 times and no library attention, held to the eager
+    pipeline (bf16 within ENGINE_BF16_ATOL, int8_static within the int8
+    limits), refusing another shape, its flops against the analytic count,
+    its memory, its host time per call in turns with the eager pipeline and
+    the exported program; and K1's operator against the direct call, per
+    call and in the
     frame.
 
 It checks each path's outputs and that each went through its kernels, and
@@ -119,13 +130,15 @@ bounds (K4's of the fill alone, as the TPU kernel it replaces; its launch
 from points under from_points_* keys), and `stego_launches`,
 `anomaly_launches`, `graph_launches`, `golden_launches`,
 `features_launches`, `torchvision_launches`, `closed_loop_launches`,
-`offline_launches`, `parallel_launches`, `quant_launches` and
-`engine_launches`, each kernel's launches in the
+`offline_launches`, `parallel_launches`, `quant_mesh_launches`,
+`quant_launches`, `engine_launches` and `fused_batch_launches`, each
+kernel's launches in the
 Jackal runtime's STEGO replay, the anomaly runtime's replay, the ten graph
 frames, the golden replay, the facade's sift and histogram extractions, the
 torchvision runtime's replay, the closed-loop scenario, the offline tools'
-runs, rank 0's mesh scenario, the int8_static runtime's replay and one call
-of the reloaded engine (each counted the same way); K1's entry also has
+runs, rank 0's mesh scenario, rank 0's int8_static mesh scenario, the
+int8_static runtime's replay, one call of the reloaded engine and one call
+of build_fused_batch_fn (each counted the same way); K1's entry also has
 `parallel_tp_rank` (its times at a tp rank's shapes) and
 `operator_overhead_us`, and K4's `parallel_dp_rank_16_hulls`. Without a CUDA device, or outside
 the repository, it exits non-zero and prints no result.
@@ -2320,6 +2333,164 @@ def parallel_phase(dev, card: str, seq: dict, frames: list, size: int, S: int, D
             "k4_16": {"ms": fa_ms, "plain_ms": fap_ms, "from_points_ms": hp_ms, **b4}}
 
 
+# ------------------------------------------------- 4i: the quantised backbone on the mesh
+QUANT_MESH_TOL = {"trav_mean": 2e-2, "trav_max": 2e-1, "conf_mean": 5e-2}  # an int8 runtime against another
+# all_reduces of one forward of a quantised ViT-S/8 on the (2, 2) mesh: the int32 sums of proj and fc2 over tp,
+# the MAX of every Linear's dynamic abs-max, of "xla_int8"'s q, k and v
+QUANT_MESH_REDUCES = {"int8_static": {"SUM int32": 24}, "int8": {"SUM int32": 24, "MAX float32": 48},
+                      "int8 xla_int8": {"SUM int32": 24, "MAX float32": 48 + 36}}
+
+
+def _quant_runtime(quant, mesh=None):
+    """_mesh_runtime with a quantised backbone, calibrated (int8_static) on
+    the mesh scenario's frames: every rank the same frames."""
+    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
+    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import scenario_inputs, scenario_params
+
+    fe, ln = scenario_params(product=True)
+    fe.dino_quant = quant
+    rt = WVNRuntime(fe_params=fe, ln_params=ln, seed=0, buffer_capacity=256, reprojection_fanout=32, mesh=mesh,
+                    device="cuda")
+    rt.calibrate_backbone([scenario_inputs()[0]])
+    return rt
+
+
+def _count_reduces(fn) -> dict:
+    """fn() with every torch.distributed.all_reduce counted by op and type."""
+    import torch.distributed as dist
+
+    counts: dict = {}
+    all_reduce = dist.all_reduce
+
+    def counting(t, op=dist.ReduceOp.SUM, *a, **kw):
+        key = f"{'MAX' if op == dist.ReduceOp.MAX else 'SUM'} {str(t.dtype)[6:]}"
+        counts[key] = counts.get(key, 0) + 1
+        return all_reduce(t, op, *a, **kw)
+
+    dist.all_reduce = counting
+    try:
+        fn()
+    finally:
+        dist.all_reduce = all_reduce
+    return counts
+
+
+def quant_mesh_rank(rank: int, world: int) -> dict:
+    """4i on one rank of the (2, 2) mesh: the int8_static and int8 product
+    runtimes through the mesh scenario (launches and K1's shapes), the
+    all_reduces of one ViT forward of each (and of an int8 ViT with
+    "xla_int8" attention, split by shard_module), then image_batch_callback
+    B=4 of the two and of the bf16 runtime, in turns."""
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.models import vit as tvit
+    from wild_visual_navigation_tpu_torch.parallel import create_mesh, shard_module, vit_param_spec
+    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import run_mesh_scenario, scenario_inputs
+
+    mesh = create_mesh(dp=2, tp=2, device="cuda")
+    out = {"coords": (mesh.get_local_rank("dp"), mesh.get_local_rank("tp"))}
+    rts = {"int8_static": _quant_runtime("int8_static", mesh), "int8": _quant_runtime("int8", mesh),
+           "bf16": _mesh_runtime(mesh)}
+    x = torch.rand(2, 3, 224, 224, generator=torch.Generator().manual_seed(rank // 2)).cuda()  # this dp rank's frames
+    for quant in ("int8_static", "int8"):
+        shapes: dict = {}
+        _parallel_wrapped(shapes)
+        torch.cuda.synchronize()
+        port.reset_launch_counts()
+        res = run_mesh_scenario(rts[quant])
+        torch.cuda.synchronize()
+        res["launches"] = port.launch_counts()
+        res["k1_shapes"] = sorted(shapes.get("k1_shapes", ()))
+        res["amax"] = [float(m.amax) for m in rts[quant].feature_extractor._extractor.vit.modules()
+                       if isinstance(m, tvit.StaticQuantLinear)]
+        with torch.no_grad():
+            res["reduces"] = _count_reduces(lambda: tvit.dense_features(rts[quant].feature_extractor._extractor.vit,
+                                                                        x))
+        out[quant] = res
+    vit = tvit.make_vit("dino", "vit_small", 8, attention_impl="xla_int8", quant="int8", device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    shard_module(vit, vit_param_spec(vit, tp=2), mesh)
+    with torch.no_grad():
+        out["xla_int8_reduces"] = _count_reduces(lambda: tvit.dense_features(vit, x))
+    imgs, Ks, Tc = scenario_inputs()
+
+    def batch(rt, i):
+        poses = np.tile(np.eye(4), (4, 1, 1))
+        poses[:, 0, 3] = 100.0 + i
+        res = rt.image_batch_callback(imgs, stamps=[100.0 + i + 0.01 * c for c in range(4)],
+                                      cameras=[f"cam{c}" for c in range(4)], Ks=Ks, orig_h=40, orig_w=40,
+                                      poses_base_in_world=poses, poses_cam_in_base=np.tile(Tc, (4, 1, 1)))
+        return res[-1].traversability
+
+    times: dict = {}
+    for n, name in enumerate(["bf16", "int8_static", "int8", "int8", "int8_static", "bf16"]):
+        calls = [(rts[name], 1000 * (n + 1) + i) for i in range(WARMUP + PARALLEL_TIMED)]
+        times.setdefault(name, []).append(wall_ms(batch, calls))
+    out["batch_ms"] = times
+    return out
+
+
+def quant_mesh_phase(dev, card: str) -> dict:
+    """Phase 4i's quantised half: the product runtime with dino_quant
+    "int8_static" and "int8" on 4 Gloo ranks sharing the card as (dp, tp) =
+    (2, 2), held against the unmeshed runtimes on the same weights at the
+    int8 limits, its amax equal to the unmeshed calibration's, its
+    all_reduces counted, its image_batch_callback timed beside the meshed
+    bf16 runtime's. Returns rank 0's launches in the int8_static scenario."""
+    from wild_visual_navigation_tpu_torch.models import vit as tvit
+    from wild_visual_navigation_tpu_torch.parallel.launch import run_ranks
+    from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import run_mesh_scenario
+
+    t0 = time.perf_counter()
+    single = {}
+    for quant in ("int8_static", "int8"):
+        rt = _quant_runtime(quant)
+        single[quant] = run_mesh_scenario(rt)
+        single[quant]["amax"] = [float(m.amax) for m in rt.feature_extractor._extractor.vit.modules()
+                                 if isinstance(m, tvit.StaticQuantLinear)]
+        del rt
+    ranks = run_ranks(quant_mesh_rank, 4, timeout=500)
+    for quant in ("int8_static", "int8"):
+        diffs = []
+        for r in ranks:
+            d = [np.abs(a - b) for a, b in zip(r[quant]["trav"], single[quant]["trav"])]
+            c = [np.abs(a - b).mean() for a, b in zip(r[quant]["conf"], single[quant]["conf"])]
+            diffs.append((max(float(x.mean()) for x in d), max(float(x.max()) for x in d), max(c)))
+        print(f"[parallel] (d) WVNRuntime(mesh=(dp 2, tp 2), dino_quant={quant!r}) on 4 Gloo ranks sharing the card, "
+              f"the product configuration and the mesh scenario, against the unmeshed {quant} runtime on the same "
+              f"weights: per rank trav mean abs diff {[round(d[0], 6) for d in diffs]} (tol "
+              f"{QUANT_MESH_TOL['trav_mean']}), max {[round(d[1], 6) for d in diffs]} (tol {QUANT_MESH_TOL['trav_max']})"
+              f", conf mean {[round(d[2], 6) for d in diffs]} (tol {QUANT_MESH_TOL['conf_mean']}); checksums "
+              f"{[r[quant]['checksum'] for r in ranks]}; amax equal to the unmeshed calibration's: "
+              f"{[r[quant]['amax'] == single[quant]['amax'] for r in ranks]} ({len(single[quant]['amax'])} buffers)",
+              flush=True)
+        for rank, r in enumerate(ranks):
+            print(f"[parallel] (d) {quant} rank {rank} (dp, tp) {r['coords']}: launches {r[quant]['launches']}; K1 at "
+                  f"{r[quant]['k1_shapes']}; all_reduces of one ViT forward (2 frames) {r[quant]['reduces']}")
+        require(all(d[0] <= QUANT_MESH_TOL["trav_mean"] and d[1] <= QUANT_MESH_TOL["trav_max"]
+                    and d[2] <= QUANT_MESH_TOL["conf_mean"] for d in diffs),
+                f"the meshed {quant} runtime agrees with the unmeshed one")
+        require(len({r[quant]["checksum"] for r in ranks}) == 1, f"every rank of the {quant} mesh holds the same params")
+        require(all(r[quant]["amax"] == single[quant]["amax"] for r in ranks),
+                f"{quant}: calibrated amax on the mesh equal to unmeshed, bit for bit")
+        require(all(all(v > 0 for v in r[quant]["launches"].values()) for r in ranks),
+                f"{quant}: every kernel launched on every rank")
+        require(all(r[quant]["k1_shapes"] == [(2, 3, 785, 64)] for r in ranks), f"{quant}: K1 on each rank's 3 heads")
+        require(all(r[quant]["reduces"] == QUANT_MESH_REDUCES[quant] for r in ranks),
+                f"{quant}: the all_reduces of one forward are {QUANT_MESH_REDUCES[quant]}")
+    print(f"[parallel] (d) an int8 ViT-S/8 with xla_int8 attention split by shard_module: all_reduces of one forward "
+          f"per rank {[r['xla_int8_reduces'] for r in ranks]}", flush=True)
+    require(all(r["xla_int8_reduces"] == QUANT_MESH_REDUCES["int8 xla_int8"] for r in ranks),
+            "xla_int8: 24 int32 sums and 48 + 36 maxima per forward")
+    print(f"[time] (d) image_batch_callback B=4 on the (2, 2) mesh, per rank, in turns (bf16, int8_static, int8, int8, "
+          f"int8_static, bf16): " + "; ".join(f"{name} {[[round(t, 3) for t in r['batch_ms'][name]] for r in ranks]} ms"
+                                               for name in ("bf16", "int8_static", "int8"))
+          + f"; host clock, median of {PARALLEL_TIMED} | {card}", flush=True)
+    print(f"[parallel] quantised mesh done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": ranks[0]["int8_static"]["launches"], "batch_ms": [r["batch_ms"] for r in ranks]}
+
+
 # ---------------------------------------------------------------- 4j [quant] and 4k [engine]
 
 QUANT_CPU_TOL = {"trav_mean": 2e-2, "trav_max": 2e-1, "conf_mean": 5e-2}  # int8 card against its CPU twin
@@ -2615,19 +2786,49 @@ def quant_phase(dev, card: str, seq_path: Path) -> dict:
 
 
 PORT_MODEL_CODE = ("wild_visual_navigation_tpu_torch.models", "wild_visual_navigation_tpu_torch.tools")
+ENGINE_BF16_ATOL = 6e-3  # the compiled bf16 engine against eager: traversability per patch (the CPU tests' bf16 band)
+ENGINE_INT8_TOL = {"trav_mean": 2e-2, "trav_max": 2e-1}  # the compiled int8_static engine against eager
+# kernels that would be a library's attention: named so, and not one of Inductor's pointwise or reduction kernels,
+# which are named after the graph operators they read or write (K1's operator among them)
+ATTENTION_NAMES = ("flash", "fmha", "sdpa", "attention", "efficient")
+INDUCTOR_ELEMENTWISE = ("triton_poi_", "triton_per_", "triton_red_")
+
+
+def _kernel_names(fn) -> set:
+    """The names of the CUDA kernels one call of fn() runs (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_time_total > 0}
 
 
 def engine_child(x_path: str, *specs_and_outs: str) -> int:
     """The fresh process of phase 4k: for each (spec, out) pair, load the
-    engine (no model code), call it once counting launches, time it, refuse
-    another shape, count its operations and its memory; one JSON line, a
-    list with an entry per engine."""
+    compiled engine (no model code), call it once counting launches and
+    the kernels it runs, time it, refuse another shape; report what the
+    process built or compiled while loading and calling (the kernel
+    library's builds, the subprocesses it started, the files Inductor's
+    cache directory, empty before, holds after). One JSON line, a list with
+    an entry per engine."""
+    import os
+
     import torch
+
+    spawned = []
+    popen = subprocess.Popen.__init__
+    subprocess.Popen.__init__ = lambda self, *a, **kw: spawned.append(str(a[:1])[:200]) or popen(self, *a, **kw)
 
     import wild_visual_navigation_tpu_torch as port
     from wild_visual_navigation_tpu_torch.feature_extractor.aot_engine import load_engine, load_engine_spec
+    from wild_visual_navigation_tpu_torch.ops import _cuda
+    from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention
 
     x = torch.from_numpy(np.load(x_path)).cuda()
+    q = torch.randn(1, 6, 257, 64, device="cuda").bfloat16()
+    k1_names = _kernel_names(lambda: flash_attention(q, q, q, 0.125))
     report = []
     for spec, out_path in zip(specs_and_outs[::2], specs_and_outs[1::2]):
         t0 = time.perf_counter()
@@ -2641,32 +2842,47 @@ def engine_child(x_path: str, *specs_and_outs: str) -> int:
         torch.cuda.synchronize()
         launches = port.launch_counts()
         np.save(out_path, out.cpu().numpy())
+        names = _kernel_names(lambda: engine(x))
         try:
             engine(torch.zeros(shape[0], 3, shape[2] + 14, shape[3] + 14, device="cuda"))
             refused = ""
         except ValueError as e:
             refused = str(e)
         report.append({"load_s": load_s, "launches": launches, "ms": wall_ms(engine, [(x,)] * (WARMUP + 10)),
-                       "flops": engine.flops, "memory": engine.memory_analysis(), "refused": refused, "meta": meta})
+                       "flops": engine.flops, "memory": engine.memory_analysis(), "refused": refused, "meta": meta,
+                       "kernels": len(names), "k1_kernels": sorted(names & k1_names),
+                       "attention_kernels": sorted(n for n in names - k1_names
+                                                   if any(a in n.lower() for a in ATTENTION_NAMES)
+                                                   and not n.startswith(INDUCTOR_ELEMENTWISE)),
+                       "inductor_kernels": sum(n.startswith("triton_") for n in names)})
+    cache = [f for _, _, fs in os.walk(os.environ["TORCHINDUCTOR_CACHE_DIR"]) for f in fs]
     for r in report:
-        r["models_imported"] = sorted(m for m in sys.modules if m.startswith(PORT_MODEL_CODE))
+        r.update(models_imported=sorted(m for m in sys.modules if m.startswith(PORT_MODEL_CODE)),
+                 kernel_builds=_cuda.builds, spawned=spawned, inductor_cache=cache)
     print(json.dumps(report))
     return 0
 
 
 def engine_phase(dev, card: str) -> dict:
     """Phase 4k [engine]: `python -m ...tools.export_engine` at its defaults
-    (DINOv2 ViT-S/14 at 224, B = 1, bf16) in a subprocess, then an int8_static
-    engine built through the API; each loaded in a fresh process and held to
-    the eager pipeline bit for bit, refusing another shape, its operations
-    within 1 % of the analytic count. Then K1's operator against the direct
-    launch, per call and in the frame. Returns the engine's launches."""
+    (DINOv2 ViT-S/14 at 224, B = 1, bf16) in a subprocess, an int8_static
+    engine built and compiled here through the API; both loaded in one
+    fresh process that builds and compiles nothing, each launching K1 12
+    times per call and no library attention, held to the eager pipeline
+    (bf16 within ENGINE_BF16_ATOL, int8_static within ENGINE_INT8_TOL),
+    refusing another shape, its operations within 1 % of the analytic
+    count. Then each engine's host time per call in turns with its eager
+    pipeline and its exported program, and K1's operator against the
+    direct launch, per call and in the frame. Returns the engine's
+    launches."""
+    import os
     import tempfile
 
     import torch
 
     import wild_visual_navigation_tpu_torch.models.vit as vit_mod
     from wild_visual_navigation_tpu_torch.feature_extractor.aot_engine import (
+        load_engine,
         load_engine_spec,
         program_path,
         save_engine_spec,
@@ -2676,40 +2892,13 @@ def engine_phase(dev, card: str) -> dict:
     from wild_visual_navigation_tpu_torch.tools.export_engine import build_pipeline, export_pipeline, pipeline_flops
 
     t_phase = time.perf_counter()
-    try:
-        import triton
-
-        triton_line = f"import triton works (triton {triton.__version__})"
-    except ImportError as e:
-        triton_line = f"import triton fails ({e})"
-    print(f"[engine] {triton_line}; the engine is the saved ExportedProgram, run eagerly (no AOTInductor)")
     rng = np.random.default_rng(5)
     x = rng.random((1, 3, 224, 224), dtype=np.float32)
+    xd = torch.from_numpy(x).to(dev)
     results = {}
     with tempfile.TemporaryDirectory() as d:
         np.save(f"{d}/x.npy", x)
-
-        def check(tag, pipe, info, got, export_s):
-            with torch.no_grad():
-                eager = pipe(torch.from_numpy(x).to(dev)).cpu().numpy()
-                eager_ms = wall_ms(pipe, [(torch.from_numpy(x).to(dev),)] * (WARMUP + 10))
-            same = np.array_equal(got, eager)
-            analytic = pipeline_flops(pipe, 224, 1)
-            flops_rel = info["flops"] / analytic - 1
-            print(f"[engine] {tag}: exported in {export_s:.1f} s, loaded in a fresh process in {info['load_s']:.2f} s "
-                  f"(model modules imported there: {info['models_imported']}); output {got.shape} equal to the eager "
-                  f"pipeline bit for bit: {same}; another shape refused: {info['refused']!r}; flops {info['flops']} "
-                  f"against the analytic {analytic} ({flops_rel:+.4%}); launches of one call {info['launches']}; "
-                  f"memory {info['memory']}; host per call {info['ms']:.3f} ms (eager pipeline {eager_ms:.3f} ms) "
-                  f"| {card}", flush=True)
-            require(same, f"{tag}: the reloaded engine equals eager bit for bit")
-            require(info["refused"].startswith("AOTEngine expects (1, 3, 224, 224)"), f"{tag}: another shape refused")
-            require(abs(flops_rel) < 0.01, f"{tag}: flops within 1 % of the analytic count")
-            require(info["launches"]["flash_attention"] == 12, f"{tag}: K1 12 launches per call")
-            require(info["memory"] is not None and info["memory"]["peak_bytes"] > 0, f"{tag}: memory analysis")
-            return info["launches"]
-
-        # the tool in its process while this one builds, calibrates, exports and saves the int8_static engine
+        # the tool in its process while this one builds, calibrates, exports, compiles and saves the int8_static one
         spec, spec8 = f"{d}/engines/engine.spec", f"{d}/engine_int8_static.spec"
         t0 = time.perf_counter()
         tool = subprocess.Popen([sys.executable, "-m", "wild_visual_navigation_tpu_torch.tools.export_engine", "--out",
@@ -2720,32 +2909,69 @@ def engine_phase(dev, card: str) -> dict:
         eng8 = export_pipeline(pipe8, 224, 1)
         n_int_mm = sum(n.target is torch.ops.aten._int_mm.default for n in eng8.program.graph.nodes)
         save_engine_spec(spec8, {"vit": pipe8.vit.state_dict(), "head": pipe8.head.state_dict()}, eng8.input_shape,
-                         str(eng8.input_dtype), {"quant": "int8_static"}, program=eng8.program)
-        tool_out, tool_err = tool.communicate(timeout=600)
+                         str(eng8.input_dtype), {"quant": "int8_static"}, engine=eng8)
+        tool_out, tool_err = tool.communicate(timeout=900)
         tool_s = time.perf_counter() - t0
         require(tool.returncode == 0, f"tools.export_engine at its defaults: {tool_err[-2000:]}")
         print(f"[engine] tools.export_engine at its defaults ({tool_s:.1f} s in its process, beside this one's int8 "
-              f"export): " + " | ".join(tool_out.strip().splitlines()), flush=True)
+              f"engine): " + " | ".join(tool_out.strip().splitlines()), flush=True)
         require(n_int_mm == 48, f"the int8 program holds 48 _int_mm nodes ({n_int_mm})")
-        for tag, program in (("bf16", torch.export.load(program_path(spec))), ("int8_static", eng8.program)):
-            targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
-            print(f"[engine] the {tag} program: {len(targets)} operator nodes, of which "
-                  f"{sum('_assert_tensor_metadata' in t for t in targets)} metadata asserts and "
-                  f"{sum(t == 'aten.to.dtype' for t in targets)} casts, "
-                  f"{sum(t == 'aten._int_mm.default' for t in targets)} _int_mm", flush=True)
-        # both engines loaded in one fresh process
+        # both engines loaded in one fresh process, with an empty Inductor cache and the kernel library's build
+        cache = f"{d}/inductor_cache"
+        os.makedirs(cache)
         out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--engine-child", f"{d}/x.npy", spec,
                               f"{d}/bf16.npy", spec8, f"{d}/int8.npy"], capture_output=True, text=True,
-                             cwd=str(ROOT), timeout=300)
+                             cwd=str(ROOT), timeout=300, env={**os.environ, "TORCHINDUCTOR_CACHE_DIR": cache})
         require(out.returncode == 0, f"the engines load in a fresh process: {out.stderr[-2000:]}")
         info, info8 = json.loads(out.stdout.strip().splitlines()[-1])
-        params, shape, dtype, meta = load_engine_spec(spec)
+        params, *_ = load_engine_spec(spec)
         pipe = build_pipeline(device=dev)
         pipe.vit.load_state_dict(params["vit"])
         pipe.head.load_state_dict(params["head"])
-        results["engine_launches"] = check("bf16 engine (the tool's)", pipe, info, np.load(f"{d}/bf16.npy"),
-                                           float(tool_out.split("exported in ")[1].split("s")[0]))
-        check("int8_static engine (through the API)", pipe8, info8, np.load(f"{d}/int8.npy"), eng8.compile_seconds)
+        engines = {"bf16": (pipe, load_engine(spec), info, np.load(f"{d}/bf16.npy"),
+                            float(tool_out.split("compiled in ")[1].split("s")[0]), os.path.getsize(program_path(spec))),
+                   "int8_static": (pipe8, eng8, info8, np.load(f"{d}/int8.npy"), eng8.compile_seconds,
+                                   os.path.getsize(program_path(spec8)))}
+        for tag, (p, eng, inf, got, compile_s, nbytes) in engines.items():
+            with torch.no_grad():
+                eager = p(xd).cpu().numpy()
+                program = torch.export.export(p, (xd,)).module() if eng.program is None else eng.program.module()
+            diff = np.abs(got - eager)
+            analytic = pipeline_flops(p, 224, 1)
+            flops_rel = inf["flops"] / analytic - 1
+            times: dict = {}
+            for name in ["engine", "program", "eager", "eager", "program", "engine"]:
+                fn = {"engine": eng, "program": program, "eager": p}[name]
+                with torch.no_grad():
+                    times.setdefault(name, []).append(wall_ms(fn, [(xd,)] * (WARMUP + 20)))
+            print(f"[engine] {tag}: exported and compiled in {compile_s:.1f} s, package {nbytes} bytes; loaded in a "
+                  f"fresh process in {inf['load_s']:.3f} s (model modules imported there: {inf['models_imported']}; "
+                  f"kernel library builds {inf['kernel_builds']}, subprocesses {inf['spawned']}, files in the empty "
+                  f"Inductor cache {inf['inductor_cache']}); one call: launches {inf['launches']}, {inf['kernels']} "
+                  f"kernels ({inf['inductor_kernels']} Inductor's Triton kernels), K1's {inf['k1_kernels']}, library "
+                  f"attention {inf['attention_kernels']}; output {got.shape} "
+                  f"against eager: max abs diff {diff.max():.3e}, mean {diff.mean():.3e}; another shape refused: "
+                  f"{inf['refused']!r}; flops {inf['flops']} against the analytic {analytic} ({flops_rel:+.4%}); "
+                  f"memory {inf['memory']}; host per call {inf['ms']:.3f} ms in the fresh process | {card}", flush=True)
+            print(f"[time] {tag} engine, host ms per call B=1 at 224 in turns (engine, program, eager, eager, program, "
+                  f"engine), median of 20: compiled engine {[round(t, 3) for t in times['engine']]}, the exported "
+                  f"program run node by node {[round(t, 3) for t in times['program']]}, the eager pipeline "
+                  f"{[round(t, 3) for t in times['eager']]} | {card}", flush=True)
+            if tag == "bf16":
+                require(diff.max() <= ENGINE_BF16_ATOL, f"{tag}: the compiled engine within the bf16 band of eager")
+            else:
+                require(diff.mean() <= ENGINE_INT8_TOL["trav_mean"] and diff.max() <= ENGINE_INT8_TOL["trav_max"],
+                        f"{tag}: the compiled engine within the int8 band of eager")
+            require(inf["refused"].startswith("AOTEngine expects (1, 3, 224, 224)"), f"{tag}: another shape refused")
+            require(abs(flops_rel) < 0.01, f"{tag}: flops within 1 % of the analytic count")
+            require(inf["launches"]["flash_attention"] == 12 and inf["k1_kernels"], f"{tag}: K1 12 launches per call")
+            require(not inf["attention_kernels"], f"{tag}: no library attention kernel in a call")
+            require(inf["kernel_builds"] == 0 and not inf["spawned"] and not inf["inductor_cache"],
+                    f"{tag}: loading built and compiled nothing")
+            require(inf["memory"] is not None and inf["memory"]["peak_bytes"] > 0, f"{tag}: memory analysis")
+            results.setdefault("times", {})[tag] = times
+            if tag == "bf16":
+                results["engine_launches"] = inf["launches"]
 
     # K1's operator against the direct launch: per call on the host clock, and in the frame
     g = torch.Generator(device=dev).manual_seed(9)
@@ -2821,7 +3047,7 @@ def main() -> int:
         slic_step_plain,
         tile_candidates_plain,
     )
-    from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_frame_fn
+    from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_batch_fn, build_fused_frame_fn
     from wild_visual_navigation_tpu_torch.utils.confidence_generator import ConfidenceConfig, confidence_load_state_dict
     from wild_visual_navigation_tpu_torch.utils.params import confidence_state_from_jax, load_head_npz, mlp_state_from_jax
 
@@ -3120,8 +3346,10 @@ def main() -> int:
     offline = offline_phase(dev, card, g, demo)
     require(all(v > 0 for v in offline["offline_launches"].values()), "the offline tools launched every kernel")
 
-    # ---- 4i. the parallel layer: the meshed runtime on 4 Gloo ranks, the distributed trainer, NCCL at world size 1
+    # ---- 4i. the parallel layer: the meshed runtime on 4 Gloo ranks, the distributed trainer, NCCL at world size 1,
+    # and the quantised backbones on the mesh
     par = parallel_phase(dev, card, seq, rep["frames"], size, S, D)
+    qmesh = quant_mesh_phase(dev, card)
 
     # ---- 4j. the int8 backbones: the product runtime, BASELINE config 5, torch._int_mm's shape rules
     quant_launches = quant_phase(dev, card, ROOT / "assets/sequences/demo_mission.npz")
@@ -3250,6 +3478,25 @@ def main() -> int:
     print(f"[time] frames_batch B=4: latency {lat4:.3f} ms ({lat4 / 4:.3f} ms per frame) | {card}")
     profile_frames(frame, cg_state, demo, dev, card)
 
+    # build_fused_batch_fn: the bare backbone and head on frames at network size, once, against its CPU twin (the
+    # hot-swapped head, as the frame holds it now)
+    mlp_cpu.load_state_dict({k: v.cpu() for k, v in mlp.state_dict().items()})
+    batch_fn, batch_cpu = build_fused_batch_fn(dino.vit, mlp), build_fused_batch_fn(dino_cpu.vit, mlp_cpu)
+    raw = torch.from_numpy(rng.integers(0, 256, (2, 3, size, size), dtype=np.uint8))
+    torch.cuda.synchronize()
+    port.reset_launch_counts()
+    got = batch_fn(raw.to(dev))
+    torch.cuda.synchronize()
+    fused_batch_launches = port.launch_counts()
+    fb_diff = float((got.cpu() - batch_cpu(raw)).abs().max())
+    fb_ms = wall_ms(batch_fn, [(raw.to(dev),)] * (WARMUP + N_TIMED))
+    print(f"[main path] build_fused_batch_fn on (2, 3, {size}, {size}) uint8 frames -> {tuple(got.shape)} per-patch "
+          f"traversability: launches {fused_batch_launches}; against its CPU twin max abs diff {fb_diff:.3e} (tol "
+          f"5e-2, the frame's); host {fb_ms:.3f} ms per call | {card}", flush=True)
+    require(fused_batch_launches["flash_attention"] == 12 and sum(fused_batch_launches.values()) == 12,
+            "build_fused_batch_fn launches K1 12 times and nothing else")
+    require(got.shape == (2, size // 8, size // 8) and fb_diff <= 5e-2, "build_fused_batch_fn agrees with the CPU")
+
     sources = {
         "flash_attention": ("flash_attention.cu", "wild_visual_navigation_tpu/ops/flash_attention.py:132"),
         "pixelwise_score": ("pixelwise_score.cu", "wild_visual_navigation_tpu/ops/pixelwise_fused.py:210"),
@@ -3263,8 +3510,10 @@ def main() -> int:
                 "torchvision_launches": tv["torchvision_launches"][name],
                 "closed_loop_launches": tv["closed_loop_launches"][name],
                 "offline_launches": offline["offline_launches"][name],
-                "parallel_launches": par["launches"][name], "quant_launches": quant_launches[name],
-                "engine_launches": engine["engine_launches"][name]}
+                "parallel_launches": par["launches"][name], "quant_mesh_launches": qmesh["launches"][name],
+                "quant_launches": quant_launches[name],
+                "engine_launches": engine["engine_launches"][name],
+                "fused_batch_launches": fused_batch_launches[name]}
                for name, (src, rep) in sources.items()]
     kernels[0]["parallel_tp_rank"] = {"x".join(map(str, shape)): t for shape, t in par["k1"].items()}
     kernels[3]["parallel_dp_rank_16_hulls"] = par["k4_16"]

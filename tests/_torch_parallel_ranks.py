@@ -17,6 +17,7 @@ from wild_visual_navigation_tpu_torch.cfg.experiment import ExperimentParams
 from wild_visual_navigation_tpu_torch.cfg.node_params import FeatureExtractorNodeParams, LearningNodeParams
 from wild_visual_navigation_tpu_torch.models import vit as tvit
 from wild_visual_navigation_tpu_torch.models.registry import get_model
+from wild_visual_navigation_tpu_torch.models.quant import quantize_symmetric
 from wild_visual_navigation_tpu_torch.parallel import (
     create_mesh,
     make_multichip_inference,
@@ -26,19 +27,24 @@ from wild_visual_navigation_tpu_torch.parallel import (
     vit_param_spec,
 )
 from wild_visual_navigation_tpu_torch.parallel.distributed import _full, masked_batch
+from wild_visual_navigation_tpu_torch.parallel.mesh import all_gather_rows, dp_split, local_rows, mesh_axis, mesh_group
 from wild_visual_navigation_tpu_torch.runtime import WVNRuntime, run_replay, synthetic_sequence
 from wild_visual_navigation_tpu_torch.runtime.mesh_scenario import (
     params_checksum,
     run_mesh_scenario,
     run_single_frame_scenario,
+    scenario_inputs,
     scenario_params,
 )
-from wild_visual_navigation_tpu_torch.traversability.estimator import make_adam
+from wild_visual_navigation_tpu_torch.traversability.estimator import TraversabilityEstimator, make_adam
 from wild_visual_navigation_tpu_torch.utils.confidence_generator import confidence_init
 from wild_visual_navigation_tpu_torch.utils.data import TravBatch
 from wild_visual_navigation_tpu_torch.utils.loss import TraversabilityLossConfig, traversability_loss
 
 MLP_CFG = {"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": 16, "hidden_sizes": [32, 1], "reconstruction": True}}
+_rows = np.random.default_rng(0)
+MLP_BATCH = {"x": _rows.standard_normal((32, 16)).astype(np.float32), "y": _rows.uniform(size=32).astype(np.float32),
+             "yv": _rows.uniform(size=32) < 0.5, "sv": _rows.uniform(size=32) < 0.9}  # a batch of 8 nodes x 4 segments
 
 
 def _np_params(model) -> dict:
@@ -80,12 +86,123 @@ def moving_average_runtime(mesh, inputs: dict) -> dict:
     return run_mesh_scenario(rt)
 
 
+def dcp_estimator(mesh=None) -> TraversabilityEstimator:
+    """An estimator of the [32, 1] head over 16-d features on the CPU; on a
+    mesh, its head's Linears split over tp as DTensors (as
+    DistributedTrainer places them), with Adam over the placed parameters."""
+    est = TraversabilityEstimator(model_cfg=MLP_CFG, feature_dim=16, num_segments=4, buffer_capacity=8,
+                                  image_height=8, image_width=8, mesh=mesh, device="cpu", seed=5)
+    if mesh is not None:
+        shard_module(est.model, mlp_param_spec(est.model, tp=2), mesh)
+        est.reset()
+    return est
+
+
+def dcp_train(est: TraversabilityEstimator, inputs: dict, group=None, rows=lambda t: t) -> TraversabilityEstimator:
+    """Two Adam steps on the mesh check's batch (this dp rank's `rows`),
+    carrying the confidence state and the step."""
+    batch = TravBatch(*(rows(torch.from_numpy(inputs[k])) for k in ("x", "y", "yv", "sv")))
+    for _ in range(2):
+        _, _, cg = est.step_on_batch(est.model, est.optimizer, est.confidence_state, batch, group)
+        est.adopt_train_state(**{**est.train_state(), "cg_state": cg, "step": est.step + 1})
+    return est
+
+
+def full_train_state(est: TraversabilityEstimator, group=None) -> dict:
+    """The estimator's train state as numpy, tp shards gathered."""
+    st = est.train_state()
+    full = {k: _full(v, group).numpy() for k, v in st["params"].items()}
+    return {"params": full, "step": st["step"], "adam_step": st["adam"]["step"],
+            "exp_avg": {k: _full(v, group).numpy() for k, v in st["adam"]["exp_avg"].items()},
+            "exp_avg_sq": {k: _full(v, group).numpy() for k, v in st["adam"]["exp_avg_sq"].items()},
+            "cg_state": {k: v.numpy() for k, v in st["cg_state"]._asdict().items()}}
+
+
+def dcp_mesh(mesh, inputs: dict) -> dict:
+    """The DCP pair on the (2, 2) mesh: an estimator with a DTensor head
+    trained on dp rows, saved sharded to inputs["dcp_dir"]/meshed; and the
+    unmeshed checkpoint of the test process loaded into a meshed one. Full
+    states (shards gathered) as numpy."""
+    dp, dp_rank, dp_group = mesh_axis(mesh, "dp")
+    tp_group = mesh_axis(mesh, "tp")[2]
+    est = dcp_train(dcp_estimator(mesh), inputs, dp_group, lambda t: local_rows(t, dp, dp_rank))
+    out = {"sharded": isinstance(est.model.layers[0].weight, DTensor),
+           "path": est.save_checkpoint_dcp(inputs["dcp_dir"] + "/meshed"), "saved": full_train_state(est, tp_group)}
+    loaded = dcp_estimator(mesh)
+    loaded.load_checkpoint_dcp(inputs["dcp_unmeshed"])
+    out["loaded"] = full_train_state(loaded, tp_group)
+    return out
+
+
+QUANT_VIT_CASES = [("int8", "flash"), ("int8_static", "flash"), ("int8", "xla_int8")]
+
+
+def _amax(module) -> list:
+    return [float(m.amax) for m in module.modules() if isinstance(m, tvit.StaticQuantLinear)]
+
+
+def quant_mesh(mesh, inputs: dict) -> dict:
+    """The quantised layers on the (2, 2) mesh, each rank on its dp rows:
+    a per-tensor scale over dp, a row-parallel int8 Linear cut over tp (its
+    input's features too), the int8 ViTs of QUANT_VIT_CASES split over tp
+    by shard_module, and the product runtime's scenario with an
+    int8_static backbone calibrated by calibrate_backbone. Rows gathered
+    back over dp."""
+    dp, dp_rank, dp_group = mesh_axis(mesh, "dp")
+    tp, tp_rank, tp_group = mesh_axis(mesh, "tp")
+    everyone = mesh_group(mesh)
+    x = torch.from_numpy(inputs["lin_x"])
+    x_local = local_rows(x, dp, dp_rank)
+    q, scale = quantize_symmetric(x_local, group=dp_group)
+    out = {"scale": (all_gather_rows(q, dp_group).numpy(), scale.numpy())}
+    for quant in ("int8", "int8_static"):
+        lin = tvit._make_linear(quant, x.shape[1], inputs["lin_w"].shape[0], torch.float32, "cpu")
+        lin.load_state_dict({"weight": torch.from_numpy(inputs["lin_w"]), "bias": torch.from_numpy(inputs["lin_b"])},
+                            strict=False)
+        n = x.shape[1] // tp
+        cut = slice(tp_rank * n, (tp_rank + 1) * n)
+        tvit._keep(lin, cols=cut, group=tp_group)
+        lin.scale_group = everyone
+        tvit.calibrate_int8_static(lin, [x_local[:, cut]])  # a no-op for the dynamic layer
+        with torch.no_grad():
+            out[f"linear_{quant}"] = (all_gather_rows(lin(x_local[:, cut]), dp_group).numpy(), _amax(lin))
+    vit_x = local_rows(torch.from_numpy(inputs["vit_x"]), dp, dp_rank)
+    for quant, impl in QUANT_VIT_CASES:
+        vit = tvit.VisionTransformer(tvit.ViTConfig(**inputs["vit_cfg"]), attention_impl=impl, dtype=torch.float32,
+                                     state_dict=inputs["vit_state"], quant=quant)
+        shard_module(vit, vit_param_spec(vit, tp=tp), mesh)
+        tvit.calibrate_int8_static(vit, [local_rows(torch.from_numpy(inputs["vit_cal"]), dp, dp_rank)])
+        with torch.no_grad():
+            feat = all_gather_rows(tvit.dense_features(vit, vit_x), dp_group)
+        out[f"vit_{quant}_{impl}"] = (feat.numpy(), _amax(vit))
+        if quant == "int8" and impl == "flash":  # 3 frames over dp 2: one frame of padding
+            with torch.no_grad():
+                out["vit_int8_odd"] = dp_split(mesh, lambda t: tvit.dense_features(vit, t),
+                                               torch.from_numpy(inputs["vit_x3"])).numpy()
+    out["runtime_int8_static"] = quant_runtime(mesh, inputs)
+    return out
+
+
+def quant_runtime(mesh, inputs: dict) -> dict:
+    """The mesh scenario's runtime with an int8_static backbone, calibrated
+    on the scenario's frames (every rank the same frames)."""
+    fe, ln = scenario_params()
+    fe.dino_quant = "int8_static"
+    rt = WVNRuntime(fe_params=fe, ln_params=ln, buffer_capacity=16, reprojection_fanout=4, mesh=mesh, device="cpu",
+                    backbone_dtype=torch.float32, backbone_params=inputs["backbone"], sampling_seed=42)
+    rt.adopt_train_state(**inputs["train_state"])
+    assert rt.calibrate_backbone([scenario_inputs()[0]])
+    amax = _amax(rt.feature_extractor._extractor.vit)
+    return {**run_mesh_scenario(rt), "amax": amax}
+
+
 def mesh_rank(rank: int, world: int, path: str) -> dict:
     """Everything the (2, 2) mesh is held to: the one-step train step with
     every row valid and with dp rank 1's rows fully masked, the tp ViT, and
     the meshed runtime on the mesh scenario (with a pickle of its
     estimator from rank 0); then the moving_average scenario on a (4, 1)
-    mesh."""
+    mesh, the single-frame callback and the quantised layers, ViTs and
+    runtime (`quant_mesh`)."""
     inputs = torch.load(path, weights_only=False)
     mesh = create_mesh(dp=2, tp=2, device="cpu")
     out = {"shape": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)), "dp_rank": mesh.get_local_rank("dp"),
@@ -93,7 +210,8 @@ def mesh_rank(rank: int, world: int, path: str) -> dict:
     # 5 frames over dp 2: padded to 6, the padding dropped from the gathered outputs
     imgs = torch.from_numpy(inputs["vit_x"]).repeat(3, 1, 1, 1)[:5]
     seen = []
-    infer = make_multichip_inference(mesh, lambda x: (seen.append(x.shape[0]) or x.sum((1, 2, 3)), x[:, 0] > 0))
+    infer = make_multichip_inference(mesh, lambda x: (seen.append((x.shape[0], float(x[-1].sum())))
+                                                      or x.sum((1, 2, 3)), x[:, 0] > 0))
     out["infer"] = [t.numpy() for t in infer(imgs)] + [seen]
     out["step"] = one_step(mesh, inputs, inputs["sv"])
     starved = inputs["sv"].copy()
@@ -121,6 +239,8 @@ def mesh_rank(rank: int, world: int, path: str) -> dict:
                     backbone_dtype=torch.float32, backbone_params=inputs["backbone"], sampling_seed=42)
     rt.adopt_train_state(**inputs["train_state"])
     out["single_frame"] = run_single_frame_scenario(rt)
+    out["quant"] = quant_mesh(mesh, inputs)
+    out["dcp"] = dcp_mesh(mesh, inputs)
     return out
 
 
@@ -258,4 +378,35 @@ def nccl_runtime_rank(rank: int, world: int) -> dict:
         rt = WVNRuntime(fe_params=fe, ln_params=ln, buffer_capacity=16, reprojection_fanout=4, mesh=mesh,
                         device="cuda")
         out[name] = run_mesh_scenario(rt)
+    return out
+
+
+def quant_card_rank(rank: int, world: int, path: str) -> dict:
+    """The quantised layers split over tp = world on the card: a row-parallel
+    int8 Linear of each kind (its activation scale over the tp group), and
+    the int8 ViT split by shard_module, with K1's launches."""
+    import wild_visual_navigation_tpu_torch as port
+
+    data = torch.load(path, weights_only=False)
+    mesh = create_mesh(dp=1, tp=world, device="cuda")
+    tp_group = mesh_axis(mesh, "tp")[2]
+    x = data["x"].cuda()
+    n = x.shape[1] // world
+    cut = slice(rank * n, (rank + 1) * n)
+    out = {}
+    for quant in ("int8", "int8_static"):
+        lin = tvit._make_linear(quant, x.shape[1], data["w"].shape[0], torch.float32, "cuda")
+        lin.load_state_dict({"weight": data["w"], "bias": data["b"]}, strict=False)
+        tvit._keep(lin, cols=cut, group=tp_group)
+        lin.scale_group = tp_group
+        tvit.calibrate_int8_static(lin, [x[:, cut]])
+        with torch.no_grad():
+            out[quant] = lin(x[:, cut]).cpu().numpy()
+    vit = tvit.VisionTransformer(tvit.ViTConfig(**data["cfg"]), dtype=torch.bfloat16, device="cuda", quant="int8",
+                                 state_dict=data["state"])
+    shard_module(vit, vit_param_spec(vit, tp=world), mesh)
+    port.reset_launch_counts()
+    with torch.no_grad():
+        out["vit"] = tvit.dense_features(vit, data["img"].cuda()).cpu().numpy()
+    out["launches"] = port.launch_counts()["flash_attention"]
     return out

@@ -1004,10 +1004,12 @@ def test_flash_attention_operator_equals_the_direct_launch(cuda, layout):
 
 @pytest.mark.parametrize("quant", [None, "int8_static"])
 def test_exported_engine_equals_eager_on_the_card(cuda, tmp_path, quant):
-    """The export tool's pipeline (DINOv2 ViT-S/14 at 224, bf16), exported,
-    saved and loaded again: bit for bit the eager pipeline, K1 12 launches
-    per call, another shape refused, flops within 1 % of 2·M·N·K plus
-    attention."""
+    """The export tool's pipeline (DINOv2 ViT-S/14 at 224, bf16), compiled by
+    AOTInductor, saved and loaded again: K1 12 launches per call through
+    the operator, the eager pipeline's output within the bf16 band (6e-3 on
+    the traversability per patch) or, with int8 products, the int8 limits
+    (mean 2e-2, max 2e-1), another shape refused, flops within 1 % of
+    2·M·N·K plus attention."""
     from wild_visual_navigation_tpu_torch.feature_extractor import aot_engine
     from wild_visual_navigation_tpu_torch.models.vit import calibrate_int8_static
     from wild_visual_navigation_tpu_torch.tools.export_engine import build_pipeline, export_pipeline, pipeline_flops
@@ -1018,14 +1020,56 @@ def test_exported_engine_equals_eager_on_the_card(cuda, tmp_path, quant):
     eng = export_pipeline(pipe, 224, 1)
     spec = str(tmp_path / "engine.spec")
     aot_engine.save_engine_spec(spec, {"vit": pipe.vit.state_dict()}, eng.input_shape, str(eng.input_dtype), {},
-                                program=eng.program)
+                                engine=eng)
     loaded = aot_engine.load_engine(spec)
     n = port.launch_counts()["flash_attention"]
     out = loaded(x)
     assert port.launch_counts()["flash_attention"] == n + 12
     with torch.no_grad():
-        assert torch.equal(out, pipe(x))
+        d = (out - pipe(x)).abs()
+    assert torch.equal(out, eng(x))
+    if quant is None:
+        assert float(d.max()) <= 6e-3
+    else:
+        assert float(d.mean()) <= 2e-2 and float(d.max()) <= 2e-1
     with pytest.raises(ValueError, match="AOTEngine expects"):
         loaded(torch.zeros(1, 3, 238, 238, device=cuda))
     assert abs(loaded.flops / pipeline_flops(pipe, 224, 1) - 1) < 0.01
     assert loaded.memory_analysis()["peak_bytes"] > 0
+
+
+def test_meshed_int8_layers_on_the_card(cuda, tmp_path):
+    """Two Gloo ranks sharing the card as tp = 2: a row-parallel int8 Linear
+    (int8 and int8_static) equals the unmeshed layer on the card bit for
+    bit (int32 partial sums, the full weight's scales, the scale over tp);
+    the int8 ViT (ViT-S/8 widths, 2 blocks, bf16, 64 px) split by
+    shard_module launches K1 2 times on each rank and is within the int8
+    ViTs' band of the unmeshed one (relative mean error 0.04)."""
+    import _torch_parallel_ranks as ranks
+
+    from wild_visual_navigation_tpu_torch.models import vit as tvit
+    from wild_visual_navigation_tpu_torch.parallel.launch import run_ranks
+
+    g = torch.Generator().manual_seed(4)
+    w, b, x = 0.1 * torch.randn(24, 64, generator=g), torch.randn(24, generator=g), torch.randn(10, 64, generator=g)
+    cfg = dict(patch_size=8, embed_dim=384, depth=2, num_heads=6, pos_grid_size=8, layerscale_init=None)
+    ref = tvit.VisionTransformer(tvit.ViTConfig(**cfg), dtype=torch.bfloat16, device=cuda, quant="int8",
+                                 generator=torch.Generator().manual_seed(5))
+    img = torch.randn(2, 3, 64, 64, generator=g)
+    path = str(tmp_path / "inputs.pt")
+    torch.save({"w": w, "b": b, "x": x, "cfg": cfg, "img": img,
+                "state": {k: v.cpu() for k, v in ref.state_dict().items()}}, path)
+    out = run_ranks(ranks.quant_card_rank, 2, args=(path,), timeout=300)
+    for quant in ("int8", "int8_static"):
+        lin = tvit._make_linear(quant, 64, 24, torch.float32, cuda)
+        lin.load_state_dict({"weight": w, "bias": b}, strict=False)
+        tvit.calibrate_int8_static(lin, [x.to(cuda)])
+        with torch.no_grad():
+            want = lin(x.to(cuda)).cpu().numpy()
+        for r in out:
+            np.testing.assert_array_equal(r[quant], want)
+    with torch.no_grad():
+        want = tvit.dense_features(ref, img.to(cuda)).cpu().numpy()
+    for r in out:
+        assert r["launches"] == 2 and np.isfinite(r["vit"]).all()
+        assert np.abs(r["vit"] - want).mean() / want.std() < 0.04

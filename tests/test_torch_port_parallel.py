@@ -40,6 +40,7 @@ from wild_visual_navigation_tpu.utils import TraversabilityLossConfig as JLossCo
 from wild_visual_navigation_tpu.utils import confidence_init as jconfidence_init
 from wild_visual_navigation_tpu.utils import traversability_loss as jtraversability_loss
 from wild_visual_navigation_tpu_torch.models import vit as tvit
+from wild_visual_navigation_tpu_torch.models.quant import quantize_symmetric
 from wild_visual_navigation_tpu_torch.models.registry import get_model
 from wild_visual_navigation_tpu_torch.parallel import create_mesh, mlp_param_spec, vit_param_spec
 from wild_visual_navigation_tpu_torch.parallel.launch import run_ranks
@@ -61,6 +62,8 @@ STATE_ATOL = 1e-5  # meshed against unmeshed: pooled features, signals, losses, 
 # tests' limit for K2 maps
 MAP_ATOL = 2e-3
 TRAINER_RTOL, TRAINER_ATOL = 2e-5, 2e-6  # JAX's trainer test's
+# an int8 runtime against another on the same weights (chip_smoke.py's QUANT_CPU_TOL: int8 rounding flips)
+INT8_TRAV_MEAN, INT8_TRAV_MAX, INT8_CONF_MEAN = 2e-2, 2e-1, 5e-2
 VIT_CFG = dict(patch_size=8, embed_dim=384, depth=2, num_heads=6, pos_grid_size=4, layerscale_init=None)
 
 
@@ -200,13 +203,23 @@ def mesh_run(tmp_path_factory):
     vit_params = _np(jv.init(jax.random.PRNGKey(1), jnp.zeros((1, 3, 32, 32))))
     vit_x = rng.standard_normal((2, 3, 32, 32)).astype(np.float32)
 
+    qrng = np.random.default_rng(1)  # the quantised checks' own draws
+    quant_inputs = {"lin_w": (0.1 * qrng.standard_normal((24, 64))).astype(np.float32),
+                    "lin_b": qrng.standard_normal(24).astype(np.float32),
+                    "lin_x": qrng.standard_normal((10, 64)).astype(np.float32),
+                    "vit_cal": qrng.standard_normal((2, 3, 32, 32)).astype(np.float32),
+                    "vit_x3": qrng.standard_normal((3, 3, 32, 32)).astype(np.float32)}
+
     jrt = _jax_mesh_runtime()
     backbone = vit_state_from_jax(_np(jrt.feature_extractor._extractor.params))
     est = jrt.estimator
     train_state = train_state_from_jax(*_np((est.params, est._opt_state, est.confidence_state)), est.step)
     inputs = {"mlp_state": mlp_state_from_jax(mlp_params), "x": x, "y": y, "yv": yv, "sv": sv,
               "vit_cfg": VIT_CFG, "vit_state": vit_state_from_jax(vit_params), "vit_x": vit_x,
-              "backbone": backbone, "train_state": train_state}
+              "backbone": backbone, "train_state": train_state, **quant_inputs}
+    dcp_dir = tmp_path_factory.mktemp("dcp")
+    unmeshed = ranks.dcp_train(ranks.dcp_estimator(), inputs)
+    inputs.update(dcp_dir=str(dcp_dir), dcp_unmeshed=unmeshed.save_checkpoint_dcp(str(dcp_dir / "unmeshed")))
     path = str(tmp_path_factory.mktemp("mesh") / "inputs.pt")
     torch.save(inputs, path)
     out = run_ranks(ranks.mesh_rank, 4, args=(path,), timeout=300)
@@ -221,8 +234,53 @@ def mesh_run(tmp_path_factory):
                     backbone_dtype=torch.float32, backbone_params=backbone, sampling_seed=42)
     rt.adopt_train_state(**train_state)
     single["single_frame"] = run_single_frame_scenario(rt)
+    single["quant"] = _unmeshed_quant(inputs)
+    single["dcp"] = ranks.full_train_state(unmeshed)
     return {"ranks": out, "single": single, "moving_average": ranks.moving_average_runtime(None, inputs), "jax": _jax_scenario(jrt), "mlp_params": mlp_params, "jm": jm,
-            "batch": (x, y, yv, sv), "vit": np.asarray(jvit.dense_features(jv, vit_params, vit_x)), "vit_x": vit_x}
+            "batch": (x, y, yv, sv), "vit": np.asarray(jvit.dense_features(jv, vit_params, vit_x)), "vit_x": vit_x,
+            "jax_quant": _jax_quant_vits(vit_params, vit_x, quant_inputs["vit_cal"])}
+
+
+def _unmeshed_quant(inputs: dict) -> dict:
+    """The port's unmeshed counterparts of tests/_torch_parallel_ranks.py::
+    quant_mesh, on the whole batches."""
+    x = torch.from_numpy(inputs["lin_x"])
+    q, scale = quantize_symmetric(x)
+    out = {"scale": (q.numpy(), scale.numpy())}
+    for quant in ("int8", "int8_static"):
+        lin = tvit._make_linear(quant, x.shape[1], inputs["lin_w"].shape[0], torch.float32, "cpu")
+        lin.load_state_dict({"weight": torch.from_numpy(inputs["lin_w"]), "bias": torch.from_numpy(inputs["lin_b"])},
+                            strict=False)
+        tvit.calibrate_int8_static(lin, [x])
+        with torch.no_grad():
+            out[f"linear_{quant}"] = (lin(x).numpy(), ranks._amax(lin))
+    for quant, impl in ranks.QUANT_VIT_CASES:
+        vit = tvit.VisionTransformer(tvit.ViTConfig(**VIT_CFG), attention_impl=impl, dtype=torch.float32,
+                                     state_dict=inputs["vit_state"], quant=quant)
+        tvit.calibrate_int8_static(vit, [torch.from_numpy(inputs["vit_cal"])])
+        with torch.no_grad():
+            out[f"vit_{quant}_{impl}"] = (tvit.dense_features(vit, torch.from_numpy(inputs["vit_x"])).numpy(),
+                                          ranks._amax(vit))
+            if quant == "int8" and impl == "flash":
+                out["vit_int8_odd"] = tvit.dense_features(vit, torch.from_numpy(inputs["vit_x3"])).numpy()
+    out["runtime_int8_static"] = ranks.quant_runtime(None, inputs)
+    return out
+
+
+def _jax_quant_vits(vit_params, vit_x, cal) -> dict:
+    """JAX's unsharded int8 ViTs of QUANT_VIT_CASES on the same weights
+    (attention "xla" where the port runs K1's plain version)."""
+    out = {}
+    for quant, impl in ranks.QUANT_VIT_CASES:
+        jv = jvit.VisionTransformer(jvit.ViTConfig(**VIT_CFG), attention_impl="xla" if impl == "flash" else impl,
+                                   dtype=jnp.float32, quant=quant)
+        v = vit_params
+        if quant == "int8_static":
+            v = {"params": vit_params["params"],
+                 "quant_cal": jv.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 32, 32)))["quant_cal"]}
+            v = _np(jvit.calibrate_int8_static(jv, v, [cal]))
+        out[f"vit_{quant}_{impl}"] = np.asarray(jax.jit(functools.partial(jvit.dense_features, jv))(v, vit_x))
+    return out
 
 
 def _jax_step(jm, params, batch):
@@ -262,12 +320,12 @@ def test_multichip_train_step_matches_jax(mesh_run, case):
 
 def test_multichip_inference_splits_frames_over_dp(mesh_run):
     """make_multichip_inference on 5 frames over dp 2: each rank runs 3
-    (one zero frame of padding on the second), and every rank gets all 5
-    outputs of a tuple, a boolean one included, exactly."""
+    (one frame of padding on the second, a copy of the last), and every
+    rank gets all 5 outputs of a tuple, a boolean one included, exactly."""
     x = np.tile(mesh_run["vit_x"], (3, 1, 1, 1))[:5]
     for r in mesh_run["ranks"]:
         sums, positive, seen = r["infer"]
-        assert seen == [3]
+        assert seen == [(3, float(torch.from_numpy(x[2 if r["dp_rank"] == 0 else 4]).sum()))]
         np.testing.assert_array_equal(sums, torch.from_numpy(x).sum((1, 2, 3)).numpy())
         np.testing.assert_array_equal(positive, x[:, 0] > 0)
 
@@ -332,6 +390,108 @@ def test_meshed_moving_average_with_a_padded_batch(mesh_run):
         np.testing.assert_allclose(got["losses"], single["losses"], atol=STATE_ATOL)
         for k, v in single["params"].items():
             np.testing.assert_allclose(got["params"][k], v, atol=STATE_ATOL, err_msg=k)
+
+
+def test_dp_split_dynamic_scale_is_the_whole_batchs(mesh_run):
+    """quantize_symmetric on each dp rank's rows with the abs-max reduced
+    over dp: the whole batch's scale and int8 values, bit for bit."""
+    q, scale = mesh_run["single"]["quant"]["scale"]
+    for r in mesh_run["ranks"]:
+        got_q, got_scale = r["quant"]["scale"]
+        np.testing.assert_array_equal(got_scale, scale)
+        np.testing.assert_array_equal(got_q, q)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_static"])
+def test_quantised_row_parallel_linear_is_bit_equal(mesh_run, quant):
+    """An int8 Linear cut over tp 2 (each rank its half of the input
+    features and of the weight's columns, the full weight's scales), on dp
+    2's rows, with its int32 accumulators summed over tp and its scale over
+    the mesh (int8_static: its calibrated amax): the unmeshed layer's
+    output and amax, bit for bit."""
+    want, want_amax = mesh_run["single"]["quant"][f"linear_{quant}"]
+    for r in mesh_run["ranks"]:
+        got, amax = r["quant"][f"linear_{quant}"]
+        np.testing.assert_array_equal(got, want)
+        assert amax == want_amax and len(amax) == (quant == "int8_static")
+
+
+@pytest.mark.parametrize("case", ranks.QUANT_VIT_CASES, ids=["-".join(c) for c in ranks.QUANT_VIT_CASES])
+def test_meshed_int8_vit_matches_jax_and_unmeshed(mesh_run, case):
+    """The int8 ViT (ViT-S/8 widths, 2 blocks, fp32, 32 px) on the (2, 2)
+    mesh, split over tp by shard_module and its 2 frames over dp (the
+    static one calibrated on its dp half of the batch): against JAX's
+    unsharded int8 ViT within tests/test_torch_port_quant.py's band
+    (VIT_REL, VIT_MAX); against the port's unmeshed int8 ViT bit for bit
+    (every integer is the unmeshed one, and the dequantised products add
+    the same fp32 values), amax buffers included."""
+    from test_torch_port_quant import VIT_MAX, VIT_REL
+
+    key = f"vit_{case[0]}_{case[1]}"
+    want, want_amax = mesh_run["single"]["quant"][key]
+    jx = mesh_run["jax_quant"][key]
+    d = np.abs(want - jx)
+    assert d.mean() / jx.std() < VIT_REL and d.max() < VIT_MAX
+    for r in mesh_run["ranks"]:
+        got, amax = r["quant"][key]
+        np.testing.assert_array_equal(got, want)
+        assert amax == want_amax and len(amax) == (8 if case[0] == "int8_static" else 0)
+
+
+def test_meshed_int8_vit_on_a_batch_dp_does_not_divide(mesh_run):
+    """The int8 ViT on the (2, 2) mesh through dp_split on 3 frames: dp
+    rank 1 runs the last frame and a copy of it, which moves no abs-max, so
+    the 3 frames' features are the unmeshed ViT's bit for bit."""
+    want = mesh_run["single"]["quant"]["vit_int8_odd"]
+    for r in mesh_run["ranks"]:
+        np.testing.assert_array_equal(r["quant"]["vit_int8_odd"], want)
+
+
+def test_meshed_int8_static_runtime_matches_unmeshed(mesh_run):
+    """WVNRuntime(mesh=(2, 2), dino_quant="int8_static") on the mesh
+    scenario, calibrated by calibrate_backbone on every rank: its 48 amax
+    buffers equal the unmeshed runtime's bit for bit, and its maps are
+    held to the unmeshed runtime's at the int8 limits (trav mean abs diff
+    INT8_TRAV_MEAN, max INT8_TRAV_MAX, conf mean INT8_CONF_MEAN); every
+    rank the same checksum."""
+    want = mesh_run["single"]["quant"]["runtime_int8_static"]
+    assert len(want["amax"]) == 48 and min(want["amax"]) > 0
+    assert len({r["quant"]["runtime_int8_static"]["checksum"] for r in mesh_run["ranks"]}) == 1
+    for r in mesh_run["ranks"]:
+        got = r["quant"]["runtime_int8_static"]
+        assert got["amax"] == want["amax"]
+        for a, b in zip(got["trav"], want["trav"]):
+            d = np.abs(a - b)
+            assert np.isfinite(a).all() and d.mean() < INT8_TRAV_MEAN and d.max() < INT8_TRAV_MAX
+        for a, b in zip(got["conf"], want["conf"]):
+            assert np.abs(a - b).mean() < INT8_CONF_MEAN
+        assert np.isfinite(got["losses"]).all()
+
+
+def _assert_states_equal(got: dict, want: dict):
+    assert (got["step"], got["adam_step"]) == (want["step"], want["adam_step"]) == (2, 2)
+    for part in ("params", "exp_avg", "exp_avg_sq", "cg_state"):
+        assert got[part].keys() == want[part].keys()
+        for k, v in want[part].items():
+            np.testing.assert_array_equal(got[part][k], v, err_msg=f"{part} {k}")
+
+
+def test_dcp_checkpoint_moves_between_meshed_and_unmeshed_estimators(mesh_run):
+    """save_checkpoint_dcp / load_checkpoint_dcp across layouts: the 4
+    ranks' estimator, its head split over tp as DTensors, saves sharded and
+    an unmeshed estimator loads it with the ranks' params, Adam moments and
+    step, and confidence state, exactly; the unmeshed estimator's
+    checkpoint loads into the meshed one's shards exactly."""
+    rank0 = mesh_run["ranks"][0]["dcp"]
+    assert os.path.basename(rank0["path"]) == "dcp_2" and all(r["dcp"]["path"] == rank0["path"]
+                                                             for r in mesh_run["ranks"])
+    est = ranks.dcp_estimator()
+    est.load_checkpoint_dcp(rank0["path"])
+    for r in mesh_run["ranks"]:
+        assert r["dcp"]["sharded"]
+        _assert_states_equal(r["dcp"]["saved"], rank0["saved"])
+        _assert_states_equal(r["dcp"]["loaded"], mesh_run["single"]["dcp"])
+    _assert_states_equal(ranks.full_train_state(est), rank0["saved"])
 
 
 def test_pickled_meshed_estimator_loads_unmeshed(mesh_run):

@@ -324,11 +324,47 @@ def test_xla_int8_attention_impl_matches_jax(jax_vit_s8):
     assert d.mean() / want.std() < VIT_REL and d.max() < VIT_MAX
 
 
-def test_shard_heads_refuses_a_quantised_vit():
+def test_shard_heads_refuses_a_quantised_vit(tmp_path):
+    """shard_heads_ takes a quantised ViT (ROADMAP.md item 28b): on each
+    of tp = 2 ranks, qkv and fc1 keep their rows of the unmeshed int8
+    weights and scales, and proj and fc2 their columns of the unmeshed int8
+    weights with the full weight's scales (not the slice's own maxima),
+    also after a refresh; the biases of proj and fc2 stay whole. (A group
+    of one process stands in for the tp group: the cut is local.)"""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
     cfg = tvit.ViTConfig(patch_size=8, embed_dim=64, depth=1, num_heads=4, pos_grid_size=4)
-    vit = tvit.VisionTransformer(cfg, device="cpu", quant="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 28b"):
-        tvit.shard_heads_(vit, None, 0, 2, {})
+    for quant in ("int8", "int8_static"):
+        full = tvit.VisionTransformer(cfg, device="cpu", quant=quant, generator=torch.Generator().manual_seed(0))
+        spec = {f"blocks.0.{n}.weight": Shard(0) for n in ("attn.qkv", "mlp.fc1")}
+        spec.update({f"blocks.0.{n}.weight": Shard(1) for n in ("attn.proj", "mlp.fc2")}, other=Replicate())
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg_{quant}", world_size=1, rank=0)
+        try:
+            for rank in range(2):
+                vit = tvit.VisionTransformer(cfg, device="cpu", quant=quant, state_dict=full.state_dict())
+                tvit.shard_heads_(vit, dist.group.WORLD, rank, 2, spec)
+                attn, mlp, fa, fm = vit.blocks[0].attn, vit.blocks[0].mlp, full.blocks[0].attn, full.blocks[0].mlp
+                assert attn.num_heads == 2 and attn.proj.tp_group is dist.group.WORLD and attn.qkv.tp_group is None
+                heads = [(j * 4 + rank * 2 + h) * 16 + d for j in range(3) for h in range(2) for d in range(16)]
+                cols = slice(rank * 32, (rank + 1) * 32)
+                hidden = slice(rank * 128, (rank + 1) * 128)
+                for _ in range(2):  # as cut, and after a refresh
+                    assert torch.equal(attn.qkv.weight_q, fa.qkv.weight_q[heads])
+                    assert torch.equal(attn.qkv.weight_scale, fa.qkv.weight_scale[:, heads])
+                    assert torch.equal(attn.proj.weight_q, fa.proj.weight_q[:, cols])
+                    assert torch.equal(attn.proj.weight_scale, fa.proj.weight_scale)
+                    assert torch.equal(mlp.fc1.weight_q, fm.fc1.weight_q[hidden])
+                    assert torch.equal(mlp.fc2.weight_q, fm.fc2.weight_q[:, hidden])
+                    assert torch.equal(mlp.fc2.weight_scale, fm.fc2.weight_scale)
+                    assert torch.equal(mlp.fc2.bias, fm.fc2.bias)
+                    for lin in (attn.qkv, attn.proj, mlp.fc1, mlp.fc2):
+                        lin.refresh_()
+                # the slice's own maxima are other scales
+                own = tquant.quantize_symmetric(mlp.fc2.weight.float().t(), dim=0)[1]
+                assert not torch.equal(own, fm.fc2.weight_scale)
+        finally:
+            dist.destroy_process_group()
 
 
 # ------------------------------------------------------------------ facade and runtime

@@ -489,23 +489,26 @@ def _world_of_one(build):
     (lambda: WVNRuntime(**_runtime_kw(False)).get_carrot(), None),
     (lambda: _calibrated(WVNRuntime(**_runtime_kw(True, dino_quant="int8_static"))), None),
     (lambda: WVNRuntime(**_runtime_kw(False)).export_supervision_markers(), None),
-    (lambda: _world_of_one(lambda: WVNRuntime(**_runtime_kw(False, dino_quant="int8"), mesh=create_mesh(device="cpu"))),
-     "item 28b"),
+    (lambda: _world_of_one(lambda: WVNRuntime(**_runtime_kw(True, dino_quant="int8"), mesh=create_mesh(device="cpu"))),
+     None),
 ], ids=["mesh", "gridmap", "anomaly", "torchvision", "int8", "distributed", "carrot", "calibrate", "markers",
         "mesh-int8"])
 def test_unported_options_raise_naming_their_item(build, item):
-    """What is not ported raises naming its ROADMAP.md item: a quantised
-    backbone under a mesh (item 28b). Anomaly mode (item 22), the
-    supervision markers (item 23), the torchvision branch (item 21), the
-    grid map with its carrot (item 24), the mesh and the distributed trainer
-    (item 27, here in a process group of one rank), and the int8 backbones
-    with calibrate_backbone (item 28) are ported and run."""
+    """What is not ported would raise naming its ROADMAP.md item; nothing is
+    left. Anomaly mode (item 22), the supervision markers (item 23), the
+    torchvision branch (item 21), the grid map with its carrot (item 24),
+    the mesh and the distributed trainer (item 27, here in a process group
+    of one rank), the int8 backbones with calibrate_backbone (item 28) and
+    a quantised backbone under a mesh (item 28b) are ported and run."""
     if item is None:
         out = build()
         if isinstance(out, DistributedTrainer):  # a ("dp",) mesh over the one rank, no step yet
             assert out.mesh.mesh_dim_names == ("dp",) and out.step_count == 0
         elif isinstance(out, WVNRuntime) and out.mesh is not None:  # a (1, 1) mesh: nothing to split
             assert tuple(out.mesh.mesh.shape) == (1, 1) and out.estimator._dp == 1
+            if out.fe_params.dino_quant is not None:  # the int8 ViT-S/8, no scale to reduce over one rank
+                layers = [m for m in out.feature_extractor._extractor.vit.modules() if isinstance(m, tvit.QuantLinear)]
+                assert len(layers) == 48 and all(m.scale_group is None and m.tp_group is None for m in layers)
         elif isinstance(out, WVNRuntime) and out.anomaly_detection:
             assert type(out.estimator.model).__name__ == "LinearRnvp"
         elif isinstance(out, WVNRuntime) and out.gridmap is not None:  # a 64 x 64 grid of 0.1 m around the origin

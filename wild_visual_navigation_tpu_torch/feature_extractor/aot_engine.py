@@ -1,15 +1,27 @@
-"""Ahead-of-time exported inference engine.
+"""Ahead-of-time compiled inference engine.
 
 Port of wild_visual_navigation_tpu/feature_extractor/aot_engine.py, the
 counterpart of the reference's TensorRT engine (build offline, load and
 run at deploy time). Where the JAX package compiles `jax.jit(fn).lower()`
-at one input shape and keeps its executables in XLA's persistent cache,
-the port exports the program with `torch.export` at one input shape and
-saves the `ExportedProgram` beside the engine spec; a deploying process
-loads it and runs it eagerly, op by op, with no Python model code. Kernel
-K1 is the operator `wvn::flash_attention` (ops/flash_attention.py), one
-node of the exported graph, which runs the kernel again when loaded: the
-loader imports that module first, so the operator is registered.
+at one input shape into an XLA executable, the port exports the program
+with `torch.export` at one input shape and compiles it with AOTInductor
+(`torch._inductor.aoti_compile_and_package`) into a `.pt2` package: a
+shared library of the whole program, its weights and its Triton kernels'
+binaries. `save_engine_spec` writes the package beside the engine spec and
+`load_engine` loads it with AOTInductor's C++ loader, which compiles
+nothing (`aoti_load_package` would probe the host's CPU by compiling test
+programs, for a warning). A package that fails to compile or load raises;
+nothing runs the exported program in its place.
+
+Kernel K1 stays the operator `wvn::flash_attention` (ops/flash_attention.py)
+inside the package: Inductor keeps a custom operator as a call through its
+proxy executor, so the compiled program launches the kernel through the
+operator's body, counts its launches, and lowers no attention of its own.
+This module imports that module first, so the operator is registered
+before a package calls it.
+
+AOTInductor compiles and links its C++ wrapper with OpenMP; the build takes
+the first of $CXX, g++ and c++ that does (`host_compiler`).
 
 `enable_persistent_cache` is the counterpart of XLA's persistent cache:
 the directory where ops/_cuda.py builds and finds the hashed kernel
@@ -18,12 +30,18 @@ library, so a warm boot runs no nvcc.
 
 from __future__ import annotations
 
+import functools
 import os
+import shutil
+import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.utils._pytree as pytree
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.flop_counter import FlopCounterMode, flop_registry, register_flop_formula
 
 from ..ops import _cuda
@@ -57,6 +75,27 @@ def enable_persistent_cache(path: str) -> Path:
     return _cuda.set_build_dir(path)
 
 
+@functools.cache
+def host_compiler() -> str:
+    """The C++ compiler AOTInductor builds packages with: the first of $CXX,
+    g++ and c++ that compiles and links a program with -fopenmp, as
+    AOTInductor links every package."""
+    tried = []
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "omp.cpp")
+        with open(src, "w") as f:
+            f.write("#include <omp.h>\nint main() { return omp_get_max_threads() > 0 ? 0 : 1; }\n")
+        for cand in (os.environ.get("CXX"), "g++", "c++"):
+            path = shutil.which(cand) if cand else None
+            if path is None or path in tried:
+                continue
+            tried.append(path)
+            res = subprocess.run([path, "-fopenmp", src, "-o", os.path.join(d, "omp")], capture_output=True)
+            if res.returncode == 0:
+                return path
+    raise RuntimeError(f"no C++ compiler links with -fopenmp (tried {tried or 'none found'})")
+
+
 class _Fn(torch.nn.Module):
     def __init__(self, fn: Callable):
         super().__init__()
@@ -66,54 +105,86 @@ class _Fn(torch.nn.Module):
         return self.fn(x)
 
 
+def _count_flops(program: torch.export.ExportedProgram, shape, dtype, device) -> int:
+    """Floating-point (and int8) operations of one call of the program,
+    counted by FlopCounterMode over a call on fake tensors (shapes only)."""
+    module = program.module()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        x = torch.zeros(shape, dtype=dtype, device=device)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            module(x)
+    return counter.get_total_flops()
+
+
+class _Package:
+    """A compiled package loaded by AOTInductor's C++ loader: call it with
+    the input tensor."""
+
+    def __init__(self, path: str, device: torch.device):
+        index = device.index if device.type == "cuda" and device.index is not None else -1
+        self.loader = torch._C._aoti.AOTIModelPackageLoader(str(path), "model", False, 1, index)
+        self._out_spec = pytree.treespec_loads(self.loader.get_call_spec()[1])
+
+    def __call__(self, x: torch.Tensor):
+        return pytree.tree_unflatten(self.loader.boxed_run([x]), self._out_spec)
+
+
 class AOTEngine:
-    """A program exported at one input shape; call it like the reference's
-    TrtModel. `fn_or_module` takes the input tensor alone (its weights are
-    the module's, or closed over by the function)."""
+    """A program compiled ahead of time at one input shape; call it like
+    the reference's TrtModel. `fn_or_module` takes the input tensor alone
+    (its weights are the module's, or closed over by the function).
+    `compile_seconds` is the export and the compilation; `package` the
+    compiled file, `program` the exported program it was compiled from
+    (None for a loaded engine)."""
 
     def __init__(self, fn_or_module, example_input: torch.Tensor):
         module = fn_or_module if isinstance(fn_or_module, torch.nn.Module) else _Fn(fn_or_module)
         t0 = time.perf_counter()
         with torch.no_grad():
             program = torch.export.export(module, (example_input,))
+        self._dir = tempfile.TemporaryDirectory(prefix="wvn_engine_")
+        package = os.path.join(self._dir.name, "engine.pt2")
+        with torch._inductor.config.patch({"cpp.cxx": (None, host_compiler())}):
+            torch._inductor.aoti_compile_and_package(program, package_path=package)
         self.compile_seconds = time.perf_counter() - t0
-        self._adopt(program)
+        self.program = program
+        self.input_shape = tuple(example_input.shape)
+        self.input_dtype = example_input.dtype
+        self.device = example_input.device
+        self._flops = _count_flops(program, self.input_shape, self.input_dtype, self.device)
+        self.weight_bytes = sum(t.numel() * t.element_size()
+                                for t in list(program.state_dict.values()) + list(program.constants.values()))
+        self._adopt(package)
 
     @classmethod
-    def from_program(cls, program: torch.export.ExportedProgram) -> "AOTEngine":
+    def from_package(cls, package: str, input_shape, input_dtype: torch.dtype, device, flops: int,
+                     weight_bytes: int) -> "AOTEngine":
+        """A compiled package loaded again, with the input contract, flops
+        and weight bytes its spec recorded."""
         engine = cls.__new__(cls)
-        engine.compile_seconds = 0.0
-        engine._adopt(program)
+        engine.compile_seconds, engine.program = 0.0, None
+        engine.input_shape, engine.input_dtype, engine.device = tuple(input_shape), input_dtype, torch.device(device)
+        engine._flops, engine.weight_bytes = flops, weight_bytes
+        engine._adopt(package)
         return engine
 
-    def _adopt(self, program: torch.export.ExportedProgram) -> None:
-        self.program = program
-        self._module = program.module()
-        name = program.graph_signature.user_inputs[0]
-        spec = next(n for n in program.graph.nodes if n.op == "placeholder" and n.name == name).meta["val"]
-        self.input_shape = tuple(int(n) for n in spec.shape)
-        self.input_dtype = spec.dtype
-        self.device = spec.device
-        self._flops: Optional[int] = None
+    def _adopt(self, package: str) -> None:
+        self.package = package
+        self._run = _Package(package, self.device)
 
     def __call__(self, x: torch.Tensor):
         if tuple(x.shape) != self.input_shape:
             raise ValueError(f"AOTEngine expects {self.input_shape}, got {tuple(x.shape)}")
-        with torch.no_grad():
-            return self._module(x)
+        return self._run(x)
 
     def _example(self) -> torch.Tensor:
         return torch.zeros(self.input_shape, dtype=self.input_dtype, device=self.device)
 
     @property
     def flops(self) -> int:
-        """Floating-point (and int8) operations of one call, counted by
-        FlopCounterMode over a call on zeros."""
-        if self._flops is None:
-            counter = FlopCounterMode(display=False)
-            with counter:
-                self(self._example())
-            self._flops = counter.get_total_flops()
+        """Floating-point (and int8) operations of one call, counted on the
+        exported program (FlopCounterMode over a call on fake tensors)."""
         return self._flops
 
     def memory_analysis(self) -> Optional[dict]:
@@ -130,27 +201,29 @@ class AOTEngine:
         out = self(x)
         torch.cuda.synchronize(self.device)
         outs = out if isinstance(out, (tuple, list)) else (out,)
-        weights = list(self.program.state_dict.values()) + list(self.program.constants.values())
-        return {"argument_bytes": sum(t.numel() * t.element_size() for t in weights + [x]),
+        return {"argument_bytes": self.weight_bytes + x.numel() * x.element_size(),
                 "output_bytes": sum(t.numel() * t.element_size() for t in outs),
                 "peak_bytes": torch.cuda.max_memory_allocated(self.device) - base}
 
 
 def program_path(spec_path: str) -> str:
-    """Where the ExportedProgram beside an engine spec lives."""
+    """Where the compiled package beside an engine spec lives."""
     return f"{spec_path}.pt2"
 
 
 def save_engine_spec(path: str, params, input_shape: Tuple[int, ...], input_dtype: str, meta: dict,
-                     program: Optional[torch.export.ExportedProgram] = None) -> str:
+                     engine: Optional[AOTEngine] = None) -> str:
     """Persist the weights and the input contract (tensors, tuples, strings
-    and numbers only, so `torch.load(weights_only=True)` reads them), and
-    the exported program beside them when one is given."""
+    and numbers only, so `torch.load(weights_only=True)` reads them), and,
+    when an engine is given, its compiled package beside them with its
+    flops, weight bytes and device in the spec."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save({"params": params, "input_shape": tuple(input_shape), "input_dtype": str(input_dtype),
-                "meta": meta}, path)
-    if program is not None:
-        torch.export.save(program, program_path(path))
+    payload = {"params": params, "input_shape": tuple(input_shape), "input_dtype": str(input_dtype), "meta": meta}
+    if engine is not None:
+        shutil.copyfile(engine.package, program_path(path))
+        payload["engine"] = {"flops": int(engine.flops), "weight_bytes": int(engine.weight_bytes),
+                             "device": str(engine.device)}
+    torch.save(payload, path)
     return path
 
 
@@ -161,5 +234,10 @@ def load_engine_spec(path: str, map_location=None):
 
 
 def load_engine(path: str) -> AOTEngine:
-    """The engine saved beside the spec at `path`, ready to call."""
-    return AOTEngine.from_program(torch.export.load(program_path(path)))
+    """The engine compiled beside the spec at `path`, loaded and ready to
+    call; it compiles nothing."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    info = payload["engine"]
+    return AOTEngine.from_package(program_path(path), payload["input_shape"],
+                                  getattr(torch, payload["input_dtype"].removeprefix("torch.")), info["device"],
+                                  info["flops"], info["weight_bytes"])

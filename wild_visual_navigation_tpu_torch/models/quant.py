@@ -19,6 +19,14 @@ outright (an inner size of 64). `int_mm` pads with zeros to those sizes
 stored (out, in) is that already) and slices the product back; a shape the
 card still refuses raises.
 
+Under a mesh (models/vit.py::shard_heads_, parallel/mesh.py::shard_module)
+each rank holds part of a tensor whose per-tensor scale JAX's sharded
+program takes over the whole: `group=` reduces the local abs-max with MAX
+over the process group that splits it (exact, as max is), and a
+row-parallel product sums its int32 accumulators over tp before the
+dequantisation (exact too, where summing dequantised fp32 partials would
+round differently and flip int8 roundings downstream).
+
 Rounding follows the JAX package: `torch.round` rounds half to even as
 `jnp.round` does, values clip to ±127, scales floor at 1e-12. Every scale
 stays a tensor on the operands' device (no host sync), and every division
@@ -29,6 +37,7 @@ with its reciprocal, which can differ from the quotient in its last bit.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 QMAX = 127.0
@@ -38,11 +47,22 @@ def _qmax_like(t: torch.Tensor) -> torch.Tensor:
     return torch.full((), QMAX, dtype=torch.float32, device=t.device)
 
 
-def quantize_symmetric(x: torch.Tensor, dim: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+def max_over(t: torch.Tensor, group) -> torch.Tensor:
+    """t's elementwise maximum over the ranks of `group` (None: t)."""
+    if group is not None:
+        t = t.contiguous()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
+def quantize_symmetric(x: torch.Tensor, dim: int | None = None, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x -> (int8 values, fp32 scale): q = round(x / s), s = amax / 127
-    floored at 1e-12; amax over the whole tensor or along `dim` (kept)."""
+    floored at 1e-12; amax over the whole tensor or along `dim` (kept). A
+    per-tensor amax is taken over the ranks of `group` too, where x is one
+    rank's part of the tensor."""
     amax = x.abs().amax() if dim is None else x.abs().amax(dim=dim, keepdim=True)
-    scale = torch.clamp(amax.float() / _qmax_like(x), min=1e-12)
+    amax = max_over(amax.float(), group if dim is None else None)
+    scale = torch.clamp(amax / _qmax_like(x), min=1e-12)
     return quantize_with_scale(x, scale), scale
 
 
@@ -68,11 +88,17 @@ def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def int8_matmul_scaled(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
-                       bias: torch.Tensor | None) -> torch.Tensor:
+                       bias: torch.Tensor | None, group=None) -> torch.Tensor:
     """acc(xq @ wq) · (sx · sw) + bias in fp32. xq: (..., in) int8, wq:
-    (in, out) int8 (column-major avoids a copy), sx per tensor, sw (1, out)."""
+    (in, out) int8 (column-major avoids a copy), sx per tensor, sw (1, out).
+    With `group` (a row-parallel layer's tp group: each rank holds its
+    slice of the inner axis) the int32 accumulators are summed over the
+    group first, and the bias is added once, after the sum."""
     lead = xq.shape[:-1]
     acc = int_mm(xq.reshape(-1, xq.shape[-1]), wq)
+    if group is not None:
+        acc = acc.contiguous()
+        dist.all_reduce(acc, group=group)
     y = acc.float() * (sx * sw)
     if bias is not None:
         y = y + bias.float()
@@ -107,13 +133,16 @@ def _per_head_int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(out).reshape(B, H, *out[0].shape)
 
 
-def attention_scores_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float = 1.0) -> torch.Tensor:
+def attention_scores_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float = 1.0,
+                          group=None) -> torch.Tensor:
     """softmax(q kᵀ · sm_scale) v with both products in int8: q, k, v per
-    tensor; the fp32 softmax's probabilities per row (max_k p / 127, so a
-    diffuse row keeps its precision). q, k, v: (B, H, S, Dh); out in q.dtype."""
-    qq, sq = quantize_symmetric(q)
-    kq, sk = quantize_symmetric(k)
-    vq, sv = quantize_symmetric(v)
+    tensor (over the ranks of `group` too, where each holds some of the
+    frames or heads); the fp32 softmax's probabilities per row (max_k p /
+    127, so a diffuse row keeps its precision, and rank-local). q, k, v:
+    (B, H, S, Dh); out in q.dtype."""
+    qq, sq = quantize_symmetric(q, group=group)
+    kq, sk = quantize_symmetric(k, group=group)
+    vq, sv = quantize_symmetric(v, group=group)
     s = _per_head_int_mm(qq, kq.transpose(-1, -2)).float() * (sq * sk * sm_scale)
     p = torch.softmax(s, dim=-1)
     p_scale = torch.clamp(p.amax(dim=-1, keepdim=True), min=1e-9) / _qmax_like(p)

@@ -36,16 +36,26 @@ Tensor parallelism (`shard_heads_`, forward only): each rank of a tp
 process group keeps the qkv rows and proj columns of its own heads and its
 rows of fc1 and columns of fc2, as plain tensors. Attention (K1 on the
 rank's heads) needs no collective; one all_reduce follows proj and one
-follows fc2, in fp32, and their biases are added once, after the sum. A
-quantised ViT is refused (ROADMAP.md item 28b): JAX's sharded program
-takes the weight scales of a column cut and the activation abs-max of a
-row-parallel input over the whole tensor, which a rank-local slice would
-not.
+follows fc2, in fp32, and their biases are added once, after the sum.
+
+A quantised ViT under a mesh computes what JAX's sharded program computes
+on the global tensors (`share_scales_` names the process groups):
+  * qkv and fc1 (column-parallel) keep their rows, whose per-output-channel
+    weight scales depend on their own row alone; proj and fc2
+    (row-parallel) keep the full weight's scales, and sum their int32
+    accumulators over tp (exact) before one dequantisation and the bias;
+  * "int8" takes each per-tensor activation abs-max with a MAX all_reduce:
+    over dp for qkv and fc1 (their input is replicated over tp, its frames
+    split over dp), over the whole mesh for proj and fc2 and for
+    "xla_int8"'s q, k and v (frames over dp, features or heads over tp);
+  * "int8_static" reduces its recorded amax the same way once, when a
+    calibration ends, and needs no collective per call.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -54,7 +64,8 @@ import torch.distributed as dist
 from torch import nn
 
 from ..ops.flash_attention import flash_attention, xla_attention
-from .quant import attention_scores_int8, int8_matmul_scaled, quantize_symmetric, quantize_with_scale
+from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
+from .quant import attention_scores_int8, int8_matmul_scaled, max_over, quantize_symmetric, quantize_with_scale
 from .simple_mlp import lecun_normal_
 
 
@@ -89,7 +100,12 @@ class QuantLinear(nn.Module):
     """nn.Linear's parameters (fp32) with the product in int8: the weight
     per output channel, the activation per call, as it arrives (fp32 from
     a LayerNorm, the compute type after attention or GELU); the output in
-    `dtype`. The counterpart of JAX's QuantDense."""
+    `dtype`. The counterpart of JAX's QuantDense.
+
+    Under a mesh: `scale_group` is the process group the activation
+    abs-max is MAX-reduced over; `tp_group` marks a row-parallel slice
+    (models/vit.py::shard_heads_), whose int32 accumulators are summed
+    over it and whose weight scales are the full weight's."""
 
     def __init__(self, in_features: int, out_features: int, dtype, device):
         super().__init__()
@@ -99,19 +115,30 @@ class QuantLinear(nn.Module):
         self.register_buffer("weight_q", torch.zeros(out_features, in_features, dtype=torch.int8, device=device),
                              persistent=False)  # (out, in): the (in, out) operand column-major, as cuBLASLt takes it
         self.register_buffer("weight_scale", torch.ones(1, out_features, device=device), persistent=False)
+        self.scale_group = None
+        self.tp_group = None
         self.register_load_state_dict_post_hook(lambda module, _: module.refresh_())
 
     @torch.no_grad()
     def refresh_(self) -> None:
-        """Quantise the weight again (after its values changed)."""
+        """Quantise the weight again (after its values changed). A
+        row-parallel slice keeps the full weight's per-channel scales: the
+        slice's own maxima would be other scales."""
         if self.weight.device.type == "meta":
             return
-        wq, sw = quantize_symmetric(self.weight.float().t(), dim=0)  # per output channel of the flax (in, out) kernel
+        w = self.weight.float().t()  # the flax (in, out) kernel, quantised per output channel
+        if self.tp_group is None:
+            wq, sw = quantize_symmetric(w, dim=0)
+        else:
+            wq, sw = quantize_with_scale(w, self.weight_scale), self.weight_scale
         self.weight_q, self.weight_scale = wq.t().contiguous(), sw
 
+    def _product(self, xq: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+        return int8_matmul_scaled(xq, sx, self.weight_q.t(), self.weight_scale, self.bias,
+                                  self.tp_group).to(self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xq, sx = quantize_symmetric(x)
-        return int8_matmul_scaled(xq, sx, self.weight_q.t(), self.weight_scale, self.bias).to(self.dtype)
+        return self._product(*quantize_symmetric(x, group=self.scale_group))
 
 
 class StaticQuantLinear(QuantLinear):
@@ -141,8 +168,7 @@ class StaticQuantLinear(QuantLinear):
         if self.calibrating:
             self.amax.copy_(torch.maximum(self.amax, x.abs().amax().float()))
             return super().forward(x)
-        xq = quantize_with_scale(x, self.x_scale)
-        return int8_matmul_scaled(xq, self.x_scale, self.weight_q.t(), self.weight_scale, self.bias).to(self.dtype)
+        return self._product(quantize_with_scale(x, self.x_scale), self.x_scale)
 
 
 def _make_linear(quant: Optional[str], in_features: int, out_features: int, dtype, device) -> nn.Module:
@@ -162,8 +188,9 @@ def _linear(x: torch.Tensor, lin: nn.Module) -> torch.Tensor:
 def _row_parallel(x: torch.Tensor, lin: nn.Linear, group) -> torch.Tensor:
     """`lin` on x, where each rank of `group` holds its columns of the
     weight and x its slice of the input features: the partial products
-    summed in fp32 over the group, then the bias, once."""
-    if group is None:
+    summed in fp32 over the group, then the bias, once. A quantised layer
+    sums its int32 accumulators itself."""
+    if group is None or isinstance(lin, QuantLinear):
         return _linear(x, lin)
     y = nn.functional.linear(x.to(lin.weight.dtype), lin.weight).float()
     dist.all_reduce(y, group=group)
@@ -180,6 +207,7 @@ class Attention(nn.Module):
         self.head_dim = D // cfg.num_heads
         self.attention_impl = attention_impl
         self.tp_group = None
+        self.scale_group = None  # "xla_int8": the group its q, k, v abs-maxes are MAX-reduced over
         self.qkv = _make_linear(quant, D, 3 * D, dtype, device)
         self.proj = _make_linear(quant, D, D, dtype, device)
 
@@ -188,7 +216,8 @@ class Attention(nn.Module):
         H, Dh = self.num_heads, self.head_dim
         qkv = _linear(x, self.qkv).reshape(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.unbind(0)  # (B, H, N, Dh) views of the qkv product, no copies
-        attend = {"flash": flash_attention, "eager": xla_attention, "xla_int8": attention_scores_int8}
+        attend = {"flash": flash_attention, "eager": xla_attention,
+                  "xla_int8": partial(attention_scores_int8, group=self.scale_group)}
         out = attend[self.attention_impl](q, k, v, Dh**-0.5)
         # K1 writes a (B, N, H, Dh) buffer, so on the card this is a view
         return _row_parallel(out.transpose(1, 2).reshape(B, N, H * Dh), self.proj, self.tp_group)
@@ -365,13 +394,17 @@ def calibrate_int8_static(vit: VisionTransformer, sample_batches) -> VisionTrans
     """Record each StaticQuantLinear's activation abs-max over the (B, 3, H,
     W) normalised batches, in place (running max over the batches, on top
     of what the layers held), and refresh their scales. The counterpart of
-    JAX's calibrate_int8_static, which returns the updated variables."""
+    JAX's calibrate_int8_static, which returns the updated variables. Under
+    a mesh (`share_scales_`) every rank calls it on its own batches, and
+    each amax is then the maximum over the ranks that split its input."""
     layers = [m for m in vit.modules() if isinstance(m, StaticQuantLinear)]
     for m in layers:
         m.calibrating = True
     try:
         for imgs in sample_batches:
             vit(imgs)
+        for m in layers:  # under a mesh: the global abs-max, as JAX records it
+            m.amax.copy_(max_over(m.amax.clone(), m.scale_group))
     finally:
         for m in layers:
             m.calibrating = False
@@ -379,8 +412,11 @@ def calibrate_int8_static(vit: VisionTransformer, sample_batches) -> VisionTrans
     return vit
 
 
-def _keep(lin: nn.Linear, rows=None, cols=None) -> None:
-    """Replace lin's weight (and bias, for a row cut) by the kept slices."""
+def _keep(lin: nn.Linear, rows=None, cols=None, group=None) -> None:
+    """Replace lin's weight (and bias, for a row cut) by the kept slices. A
+    quantised layer quantises its slice again; a cut of the input features
+    (`cols`, a row-parallel layer with `group` its tp group) keeps the full
+    weight's scales."""
     w, b = lin.weight.detach(), lin.bias.detach()
     if rows is not None:
         w, b = w[rows], b[rows]
@@ -389,6 +425,9 @@ def _keep(lin: nn.Linear, rows=None, cols=None) -> None:
     lin.weight = nn.Parameter(w.contiguous(), requires_grad=False)
     lin.bias = nn.Parameter(b.contiguous(), requires_grad=False)
     lin.out_features, lin.in_features = w.shape
+    if isinstance(lin, QuantLinear):
+        lin.tp_group = group
+        lin.refresh_()
 
 
 @torch.no_grad()
@@ -398,12 +437,12 @@ def shard_heads_(vit: VisionTransformer, group, rank: int, tp: int, spec: dict) 
     (parallel/mesh.py::vit_param_spec), the qkv rows of heads
     [rank·H/tp, (rank+1)·H/tp) as [q_h, k_h, v_h], the matching proj
     columns, and its 1/tp of fc1's rows and fc2's columns. Every rank must
-    start from the same full weights. Forward only."""
+    start from the same full weights. Forward only. A quantised ViT keeps
+    the full weights' scales in proj and fc2 and sums their int32
+    accumulators (see the module's docstring); `share_scales_` then names
+    the groups its activation scales are reduced over."""
     from torch.distributed.tensor import Shard
 
-    if vit.quant is not None:
-        raise NotImplementedError(f"tensor parallelism of a quantised ViT [{vit.quant}] is not ported to torch yet "
-                                  "(ROADMAP.md item 28b)")
     for i, blk in enumerate(vit.blocks):
         attn, mlp = blk.attn, blk.mlp
         if isinstance(spec.get(f"blocks.{i}.attn.qkv.weight"), Shard):
@@ -414,15 +453,51 @@ def shard_heads_(vit: VisionTransformer, group, rank: int, tp: int, spec: dict) 
             rows = (torch.arange(3, device=heads.device)[:, None, None] * H * Dh + heads[None, :, None] * Dh
                     + torch.arange(Dh, device=heads.device)[None, None, :]).reshape(-1)
             _keep(attn.qkv, rows=rows)
-            _keep(attn.proj, cols=(heads[:, None] * Dh + torch.arange(Dh, device=heads.device)).reshape(-1))
+            _keep(attn.proj, cols=(heads[:, None] * Dh + torch.arange(Dh, device=heads.device)).reshape(-1),
+                  group=group)
             attn.num_heads, attn.tp_group = hl, group
         if isinstance(spec.get(f"blocks.{i}.mlp.fc1.weight"), Shard):
             n = mlp.fc1.out_features // tp
             cut = slice(rank * n, (rank + 1) * n)
             _keep(mlp.fc1, rows=cut)
-            _keep(mlp.fc2, cols=cut)
+            _keep(mlp.fc2, cols=cut, group=group)
             mlp.tp_group = group
     return vit
+
+
+def share_scales_(vit: VisionTransformer, dp_group, mesh_group) -> VisionTransformer:
+    """The process groups a ViT under a ("dp", "tp") mesh reduces its
+    per-tensor activation scales over, in place: `dp_group` for the
+    column-parallel qkv and fc1, whose input every tp rank holds whole;
+    `mesh_group` (dp and tp) for a row-parallel proj or fc2 and for
+    "xla_int8"'s q, k and v, whose features or heads tp splits as well
+    (`dp_group` where tp left the block's layer whole). None: no
+    reduction. Call it after `shard_heads_`, on every rank."""
+    for blk in vit.blocks:
+        attn, mlp = blk.attn, blk.mlp
+        attn_rows = mesh_group if attn.tp_group is not None else dp_group
+        attn.scale_group = attn_rows
+        for lin, group in ((attn.qkv, dp_group), (attn.proj, attn_rows), (mlp.fc1, dp_group),
+                           (mlp.fc2, mesh_group if mlp.tp_group is not None else dp_group)):
+            if isinstance(lin, QuantLinear):
+                lin.scale_group = group
+    return vit
+
+
+def fold_imagenet_normalize(state_dict: dict) -> dict:
+    """The ViT's state dict with the ImageNet normalisation folded into the
+    patch embedding, as the JAX package's function of the same name folds
+    it: (x - mean) / std followed by the linear patch embedding equals the
+    embedding with its weight divided by std per input channel and its bias
+    shifted by the new weight's sum against mean. A ViT carrying the result
+    takes raw [0, 1] images. A new dict; the other entries are the same
+    tensors."""
+    w, b = state_dict["patch_embed.proj.weight"], state_dict["patch_embed.proj.bias"]  # (D, 3, ps, ps), (D,)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=w.device).to(w.dtype).reshape(1, 3, 1, 1)
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=w.device).to(w.dtype).reshape(1, 3, 1, 1)
+    new_w = w / std
+    return {**state_dict, "patch_embed.proj.weight": new_w,
+            "patch_embed.proj.bias": b - torch.sum(new_w * mean, dim=(1, 2, 3))}
 
 
 def dense_features(vit: VisionTransformer, img: torch.Tensor) -> torch.Tensor:

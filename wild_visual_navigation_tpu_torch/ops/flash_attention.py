@@ -12,8 +12,9 @@ and the output is a (B, H, S, D) view of a (B, S, H, D) buffer, so
 
 The kernel is also the custom operator `wvn::flash_attention`
 (torch.library.custom_op), so `torch.export` records it as one node of the
-graph (feature_extractor/aot_engine.py) and an exported program runs it
-again when loaded. Its fake (shape-only) version gives the layout the real
+graph, and the engine AOTInductor compiles from that graph
+(feature_extractor/aot_engine.py) calls it through Inductor's proxy
+executor: K1 stays the attention there, and its launches count. Its fake (shape-only) version gives the layout the real
 call returns on each device: on CUDA the (B, H, S, D) view of a
 (B, S, H, D) buffer, on the CPU a contiguous tensor. `flash_attention` is
 the one entry point: under torch.export it calls the operator; eager calls

@@ -93,7 +93,7 @@ class DistributedTrainer:
     masked reductions ignore."""
 
     def __init__(self, estimator, mesh: Optional[DeviceMesh] = None, tp: int = 1):
-        from ..traversability.estimator import adam_with_moments  # the estimator imports this package
+        from ..traversability.estimator import adam_state, adam_with_moments  # the estimator imports this package
 
         est = estimator
         self._est = est
@@ -104,7 +104,7 @@ class DistributedTrainer:
         # seed, so the copies are identical; a loaded checkpoint must be
         # loaded by every process before this
         self._model = copy.deepcopy(est.model)
-        adam = _adam_state(est.model, est.optimizer)
+        adam = adam_state(est.model, est.optimizer)
         if self._tp > 1:
             self._spec = mlp_param_spec(self._model, tp=self._tp)
             shard_module(self._model, self._spec, self._mesh)
@@ -166,8 +166,10 @@ class DistributedTrainer:
         """Write the full params, Adam moments and confidence state back
         into the local estimator (the hot-swap and checkpoint surface).
         Collective when tp > 1: the shards are gathered over tp."""
+        from ..traversability.estimator import adam_state
+
         params = {n: _full(p, self._tp_group) for n, p in self._model.named_parameters()}
-        adam = _adam_state(self._model, self._optimizer, lambda t: _full(t, self._tp_group))
+        adam = adam_state(self._model, self._optimizer, lambda t: _full(t, self._tp_group))
         self._est.adopt_train_state(params, adam, self._cg_state, step=self._step)
 
 
@@ -183,16 +185,4 @@ def masked_batch(est) -> TravBatch:
         batch = batch._replace(edges=torch.zeros((B, 2, E), dtype=torch.int32, device=dev),
                                edge_valid=torch.zeros((B, E), dtype=torch.bool, device=dev))
     return batch
-
-
-def _adam_state(model: torch.nn.Module, opt: torch.optim.Optimizer, full=lambda t: t.detach()) -> Optional[dict]:
-    """The optimizer's state as `adam_with_moments` takes it: {"step",
-    "exp_avg", "exp_avg_sq"} with the moments by parameter name (each
-    through `full`); None before the first step."""
-    named = [(n, p) for n, p in model.named_parameters() if p in opt.state]
-    if not named:
-        return None
-    return {"step": int(opt.state[named[0][1]]["step"]),
-            "exp_avg": {n: full(opt.state[p]["exp_avg"]) for n, p in named},
-            "exp_avg_sq": {n: full(opt.state[p]["exp_avg_sq"]) for n, p in named}}
 

@@ -55,6 +55,7 @@ __all__ = [
     "dp_train_step",
     "local_rows",
     "make_multichip_inference",
+    "mesh_group",
     "make_multichip_train_step",
     "mesh_axis",
     "mlp_param_spec",
@@ -95,6 +96,17 @@ def mesh_axis(mesh: Optional[DeviceMesh], name: str):
     return mesh.size(mesh.mesh_dim_names.index(name)), mesh.get_local_rank(name), mesh.get_group(name)
 
 
+def mesh_group(mesh: Optional[DeviceMesh]):
+    """The process group of every rank of the mesh: None for a mesh of one
+    rank, the default group for a mesh over the whole world (as
+    `create_mesh` makes it), else a new group. Collective where it makes a
+    group: every rank of the default group calls it."""
+    if mesh is None or mesh.mesh.numel() == 1:
+        return None
+    ranks = sorted(mesh.mesh.flatten().tolist())
+    return dist.group.WORLD if len(ranks) == dist.get_world_size() else dist.new_group(ranks)
+
+
 # ------------------------------------------------------------- collectives
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Every group rank's equal-shaped `x`, concatenated along dim 0 in
@@ -109,18 +121,20 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
 
 def local_rows(x: torch.Tensor, parts: int, index: int) -> torch.Tensor:
     """Part `index` of x's rows cut into `parts` equal parts, x padded with
-    zero rows (False for booleans) to a multiple of `parts` first."""
+    copies of its last row to a multiple of `parts` first: a copy moves no
+    maximum or minimum taken over the rows (a quantised ViT's per-tensor
+    scales stay the whole batch's)."""
     per = -(-x.shape[0] // parts)
     if per * parts != x.shape[0]:
-        x = torch.cat([x, x.new_zeros((per * parts - x.shape[0], *x.shape[1:]))])
+        x = torch.cat([x, x[-1:].expand(per * parts - x.shape[0], *x.shape[1:])])
     return x[index * per:(index + 1) * per]
 
 
 def dp_split(mesh: Optional[DeviceMesh], fn: Callable, x: torch.Tensor):
     """fn on this dp rank's rows of `x`, the results gathered over dp.
 
-    A leading size the dp degree does not divide is padded with zero rows
-    up to a multiple of it, and the padding is dropped from the gathered
+    A leading size the dp degree does not divide is padded up to a multiple
+    of it (`local_rows`), and the padding is dropped from the gathered
     results, as GSPMD pads. fn returns a tensor or a tuple (NamedTuple) of
     tensors with the rows on dim 0."""
     dp, r, group = mesh_axis(mesh, "dp")
@@ -187,19 +201,27 @@ def shard_module(model: torch.nn.Module, spec: dict, mesh: DeviceMesh) -> torch.
     says, in place, and return it.
 
     A VisionTransformer keeps each rank's slices as plain tensors
-    (models/vit.py::shard_heads_). A head's linear layers become DTensors
+    (models/vit.py::shard_heads_); a quantised one (or one with "xla_int8"
+    attention) also learns the groups its activation scales are reduced
+    over (models/vit.py::share_scales_), tp = 1 included, since its frames
+    may still split over dp. A head's linear layers become DTensors
     through `parallelize_module`: a Shard(0) layer is ColwiseParallel, a
     Shard(1) layer RowwiseParallel (a column-split layer with no row-split
     successor gathers its output). Every rank holds the full weights
     before, as every rank builds the model from the same seed, so the
     slices are cut locally with no scatter."""
-    from ..models.vit import VisionTransformer, shard_heads_
+    from ..models.vit import VisionTransformer, shard_heads_, share_scales_
 
     tp, rank, group = mesh_axis(mesh, "tp")
+    if isinstance(model, VisionTransformer):
+        if tp > 1:
+            shard_heads_(model, group, rank, tp, spec)
+        if model.quant is not None or any(b.attn.attention_impl == "xla_int8" for b in model.blocks):
+            dp, _, dp_group = mesh_axis(mesh, "dp")
+            share_scales_(model, dp_group if dp > 1 else None, mesh_group(mesh))
+        return model
     if tp == 1:
         return model
-    if isinstance(model, VisionTransformer):
-        return shard_heads_(model, group, rank, tp, spec)
     from torch.distributed.tensor.parallel import ColwiseParallel, RowwiseParallel, parallelize_module
 
     layers = sorted({n.rsplit(".", 1)[0] for n, pl in spec.items() if isinstance(pl, Shard) and n.endswith("weight")},

@@ -366,3 +366,23 @@ def build_fused_torchvision_frame_fn(
     frame.frames_batch = frames_batch
     frame.tail = tail
     return frame
+
+
+def build_fused_batch_fn(vit, mlp):
+    """The bare backbone and head as one batched function, for timing
+    stages apart: frames(imgs) takes (B, 3, H, W) frames already at network
+    size, uint8 or float in [0, 1], and returns the per-patch
+    traversability (B, Hp, Wp), with no resize, segmentation or
+    confidence (the product's batched path is build_fused_frame_fn's
+    frames_batch). The counterpart of the JAX package's function of the
+    same name; K1 runs in every block on the card."""
+
+    @torch.no_grad()
+    def frames(imgs: torch.Tensor) -> torch.Tensor:
+        if imgs.dtype == torch.uint8:
+            imgs = imgs.float() / 255.0
+        feat = dense_features(vit, imagenet_normalize(imgs))  # (B, D, Hp, Wp)
+        B, D, Hp, Wp = feat.shape
+        return mlp(feat.permute(0, 2, 3, 1).reshape(-1, D))[:, 0].reshape(B, Hp, Wp)
+
+    return frames

@@ -46,8 +46,9 @@ With `dino_quant` ("int8" or "int8_static", models/quant.py) the DINO
 backbone runs its linear layers on int8 products; a static one is
 calibrated in place by `calibrate_backbone`, and the fused frame, which
 holds the ViT module itself, computes with the new scales from its next
-call. Not ported yet, and raising NotImplementedError naming its
-ROADMAP.md item: a quantised backbone under a mesh (28b).
+call. Under a mesh the quantised backbone takes its scales over the whole
+global activation, as JAX's sharded program does (models/vit.py), so a
+static one is calibrated by every rank with the same frames.
 """
 
 from __future__ import annotations
@@ -81,10 +82,6 @@ from ..utils.devices import torch_device
 from .fused import _score_rows
 from .scheduler import Scheduler
 from .status import StatusMonitor, SystemEvents
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to torch yet (ROADMAP.md {item})")
 
 
 class InferenceResult:
@@ -183,8 +180,6 @@ class WVNRuntime:
         JAX one). `mesh`: a ("dp", "tp") DeviceMesh over the ranks that
         run this runtime together (see the module's docstring)."""
         self._device = torch_device(device, "WVNRuntime")
-        if mesh is not None and fe_params is not None and fe_params.dino_quant is not None:
-            raise _not_ported(f"a quantised backbone [{fe_params.dino_quant}] under a mesh", "item 28b")
         self.mesh = mesh
         self._dist_trainer = None
 
@@ -225,7 +220,8 @@ class WVNRuntime:
             self._D = self.feature_extractor.feature_dim
             if mesh is not None and "dino" in fp.feature_type:
                 # tensor-parallel backbone: each tp rank keeps its heads and
-                # MLP units; one all_reduce after proj and one after fc2
+                # MLP units; one all_reduce after proj and one after fc2 (a
+                # quantised one: also its activation scales over the mesh)
                 from ..parallel.mesh import mesh_axis, shard_module, vit_param_spec
 
                 vit = self.feature_extractor._extractor.vit

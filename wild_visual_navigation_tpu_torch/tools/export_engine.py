@@ -7,12 +7,12 @@ deploy time):
   1. build the per-patch pipeline: the DINO/DINOv2 ViT, then a SimpleMLP
      [D, 256, 32, 1] head with reconstruction, keeping its traversability
      output per patch, (B, 3, S, S) -> (B, S/p, S/p);
-  2. export it with torch.export at the fixed deployment shape
-     (feature_extractor/aot_engine.py::AOTEngine; kernel K1 is one
-     operator node of the program);
+  2. export it with torch.export at the fixed deployment shape and compile
+     it with AOTInductor (feature_extractor/aot_engine.py::AOTEngine;
+     kernel K1 stays the operator wvn::flash_attention inside it);
   3. save the engine spec (weights, input contract, metadata) and the
-     exported program beside it (`<out>.pt2`), which
-     aot_engine.load_engine reads back.
+     compiled package beside it (`<out>.pt2`), which
+     aot_engine.load_engine loads without compiling.
 
 Weights are seeded (pretrained DINO weights are not in the repository);
 --head_ckpt loads a head from the estimator's checkpoint
@@ -90,7 +90,7 @@ def pipeline_flops(pipeline: EnginePipeline, size: int, batch: int) -> int:
 
 
 def export_pipeline(pipeline: EnginePipeline, size: int, batch: int) -> AOTEngine:
-    """The engine at the fixed input (batch, 3, size, size), float32."""
+    """The engine compiled at the fixed input (batch, 3, size, size), float32."""
     device = next(pipeline.parameters()).device
     return AOTEngine(pipeline, torch.zeros((batch, 3, size, size), dtype=torch.float32, device=device))
 
@@ -116,7 +116,7 @@ def main(argv=None) -> int:
     size = (args.size // args.patch_size) * args.patch_size
     pipeline = build_pipeline(args.backbone, args.backbone_type, args.patch_size, device, head_ckpt=args.head_ckpt)
     engine = export_pipeline(pipeline, size, args.batch)
-    print(f"exported in {engine.compile_seconds:.1f}s; flops/call={engine.flops} "
+    print(f"exported and compiled in {engine.compile_seconds:.1f}s; flops/call={engine.flops} "
           f"(analytic {pipeline_flops(pipeline, size, args.batch)})")
 
     example = torch.zeros(engine.input_shape, device=device)
@@ -131,7 +131,7 @@ def main(argv=None) -> int:
         str(engine.input_dtype),
         meta={"backbone": args.backbone, "backbone_type": args.backbone_type, "patch_size": args.patch_size,
               "size": size, "cache": args.cache, "device": str(device)},
-        program=engine.program,
+        engine=engine,
     )
     print(f"engine spec: {path}")
     return 0

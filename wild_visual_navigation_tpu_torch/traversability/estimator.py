@@ -30,10 +30,13 @@ sampled batch, reduces the loss's counts and statistics over dp, and sums
 the gradients over dp before Adam. The head stays replicated.
 
 Checkpoints: the hot-swap dict (a snapshot of params + confidence
-statistics), full mission checkpoints in torch's own format, the per-node
-dataset export, and the whole object as a pickle (`save_pickle` /
-`load_pickle`): its tensors travel on the CPU and are put back on the
-saved device, or on the one `load_pickle` names.
+statistics), full mission checkpoints in torch's own format, the
+sharded-tensor-aware pair on torch.distributed.checkpoint
+(`save_checkpoint_dcp` / `load_checkpoint_dcp`, the counterpart of the
+JAX estimator's orbax pair), the per-node dataset export, and the whole
+object as a pickle (`save_pickle` / `load_pickle`): its tensors travel on
+the CPU and are put back on the saved device, or on the one `load_pickle`
+names.
 """
 
 from __future__ import annotations
@@ -105,6 +108,18 @@ def adam_with_moments(model: torch.nn.Module, lr: float, adam: Optional[dict]) -
                 "exp_avg_sq": adam["exp_avg_sq"][name].to(p.device, torch.float32).clone(),
             }
     return opt
+
+
+def adam_state(model: torch.nn.Module, opt: torch.optim.Optimizer, full=lambda t: t.detach()) -> Optional[dict]:
+    """The optimizer's state as `adam_with_moments` takes it: {"step",
+    "exp_avg", "exp_avg_sq"} with the moments by parameter name (each
+    through `full`); None before the first step."""
+    named = [(n, p) for n, p in model.named_parameters() if p in opt.state]
+    if not named:
+        return None
+    return {"step": int(opt.state[named[0][1]]["step"]),
+            "exp_avg": {n: full(opt.state[p]["exp_avg"]) for n, p in named},
+            "exp_avg_sq": {n: full(opt.state[p]["exp_avg_sq"]) for n, p in named}}
 
 
 class TraversabilityEstimator:
@@ -593,6 +608,17 @@ class TraversabilityEstimator:
             if step is not None:
                 self._step = step
 
+    def train_state(self) -> dict:
+        """The optimisation state as `adopt_train_state` takes it (and
+        utils/params.py::train_state_to_jax): params (the state dict), adam
+        ({"step", "exp_avg", "exp_avg_sq"} by parameter name; None before
+        the first step), the confidence state and the step. Snapshots; a
+        head split over tp gives its DTensors."""
+        with self._lock:
+            return {"params": {k: v.detach().clone() for k, v in self._model.state_dict().items()},
+                    "adam": adam_state(self._model, self._optimizer, lambda t: t.detach().clone()),
+                    "cg_state": ConfidenceState(*(t.clone() for t in self._cg_state)), "step": self._step}
+
     # ------------------------------------------------------ checkpoints
     def state_dict_for_hot_swap(self) -> dict:
         """The params + confidence payload inference polls. A snapshot:
@@ -626,6 +652,52 @@ class TraversabilityEstimator:
         self._loss = payload["loss"]
         self._pause_training = False
         print(f"Loaded checkpoint from file {checkpoint_path}")
+
+    def _dcp_state(self) -> dict:
+        """The DCP payload in this estimator's layout: the model's own
+        parameter tensors and Adam's moment tensors (zeros before the first
+        step, as optax's), so that `dcp.load` fills them in place."""
+        opt = self._optimizer
+        moments = {}
+        for key in ("exp_avg", "exp_avg_sq"):
+            moments[key] = {n: opt.state[p][key] if p in opt.state else torch.zeros_like(p.detach())
+                            for n, p in self._model.named_parameters()}
+        st = adam_state(self._model, opt)
+        return {"params": self._model.state_dict(),
+                "adam": {"step": torch.tensor(st["step"] if st else 0), **moments},
+                "cg_state": dict(self._cg_state._asdict()), "step": torch.tensor(self._step)}
+
+    def save_checkpoint_dcp(self, mission_path: str, step: Optional[int] = None) -> str:
+        """The counterpart of the JAX estimator's `save_checkpoint_orbax`
+        (orbax's StandardCheckpointer) on torch.distributed.checkpoint, with
+        its payload: params, Adam's state, the confidence state and the
+        step, in `dcp_{step}` under mission_path (JAX writes `orbax_{step}`).
+        A head split over tp (DTensors) is written shard by shard.
+        Collective under a process group: every rank calls it with the same
+        path. Returns the path."""
+        import torch.distributed.checkpoint as dcp
+
+        path = os.path.abspath(os.path.join(mission_path, f"dcp_{step if step is not None else self._step}"))
+        with self._lock:
+            dcp.save(self._dcp_state(), checkpoint_id=path)
+        return path
+
+    def load_checkpoint_dcp(self, path: str):
+        """The counterpart of the JAX estimator's `load_checkpoint_orbax`:
+        restores a `save_checkpoint_dcp` payload into this estimator's own
+        layout, whichever layout wrote it (a head split over tp reads its
+        shards of a whole tensor, a whole head the whole of a sharded
+        one)."""
+        import torch.distributed.checkpoint as dcp
+
+        with self._lock:
+            state = self._dcp_state()
+            dcp.load(state, checkpoint_id=os.path.abspath(path))
+            adam = state["adam"]
+            self.adopt_train_state(state["params"],
+                                   {"step": int(adam["step"]), "exp_avg": adam["exp_avg"],
+                                    "exp_avg_sq": adam["exp_avg_sq"]},
+                                   ConfidenceState(**state["cg_state"]), int(state["step"]))
 
     def load_confidence_state_dict(self, d: dict):
         self._cg_state = confidence_load_state_dict(self._cg_state, d)

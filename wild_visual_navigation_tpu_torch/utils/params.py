@@ -29,7 +29,14 @@ from the tree's layout.
 
 `train_state_from_jax` carries a JAX estimator's whole optimisation
 state (params, optax Adam moments, confidence state, step) into the
-port's estimator. A whole JAX runtime moves into a port runtime in two
+port's estimator.
+
+The `*_to_jax` functions are the inverses (torch → JAX): they take the
+port's state dicts (any device or float type; values widen to fp32) and
+return nested dicts and tuples of numpy arrays in the flax tree's shape,
+with the outer {"params": ...} that `model.init` returns. numpy out: a
+JAX caller turns them into arrays (and `train_state_to_jax`'s optimiser
+state into optax's tree) without this module importing JAX, flax or optax. A whole JAX runtime moves into a port runtime in two
 calls: `WVNRuntime(backbone_params=vit_state_from_jax(backbone))`, then
 `runtime.adopt_train_state(**train_state_from_jax(...))`, which also
 publishes the head to inference. `load_head_npz` reads the converted head
@@ -38,7 +45,7 @@ written by tools/convert_head_to_torch.py.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -253,3 +260,126 @@ def train_state_from_jax(params: Mapping, opt_state, cg_state, step: int, device
         "cg_state": confidence_state_from_jax(cg_state, device),
         "step": int(step),
     }
+
+
+# ------------------------------------------------------------ torch -> JAX
+def _n(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _kernel_node(sd: Mapping, prefix: str) -> dict:
+    """A Linear's weight (out, in) and bias -> flax Dense {kernel (in, out),
+    bias}; leading axes (a stack of heads) stay in front."""
+    return {"kernel": np.ascontiguousarray(np.swapaxes(_n(sd[f"{prefix}.weight"]), -1, -2)),
+            "bias": _n(sd[f"{prefix}.bias"])}
+
+
+def _indices(sd: Mapping, prefix: str) -> list[int]:
+    """The sorted i of every `{prefix}.{i}.weight` in sd."""
+    return sorted({int(k[len(prefix) + 1:].split(".")[0]) for k in sd
+                   if k.startswith(prefix + ".") and k.endswith(".weight")})
+
+
+def _mlp_tree(sd: Mapping) -> dict:
+    tree = {f"Dense_{i}": _kernel_node(sd, f"layers.{i}") for i in _indices(sd, "layers")}
+    for tower in ("trav", "reco"):
+        idx = _indices(sd, tower)
+        for i in idx:
+            tree[f"{tower}_out" if i == idx[-1] else f"{tower}_{i}"] = _kernel_node(sd, f"{tower}.{i}")
+    if not tree:
+        raise ValueError(f"no layers.i or trav./reco. Linears in a state dict with keys {sorted(sd)}")
+    return tree
+
+
+def mlp_state_to_jax(sd: Mapping) -> dict:
+    """models/simple_mlp.py state_dict -> flax SimpleMLP ({"params":
+    {Dense_i}}) or DoubleMLP (trav_i / trav_out, reco_i / reco_out)
+    params: the inverse of mlp_state_from_jax."""
+    return {"params": _mlp_tree(sd)}
+
+
+def simple_gcn_state_to_jax(sd: Mapping) -> dict:
+    """models/simple_gcn.py state_dict -> flax SimpleGCN params (Dense_i)."""
+    return mlp_state_to_jax(sd)
+
+
+def linear_rnvp_state_to_jax(sd: Mapping) -> dict:
+    """models/linear_rnvp.py state_dict -> flax LinearRnvp params (layers_k
+    / s_net, t_net / Dense_j): the inverse of linear_rnvp_state_from_jax."""
+    tree: dict = {}
+    for k in _indices(sd, "layers"):
+        for net in ("s_net", "t_net"):
+            prefix = f"layers.{k}.{net}."
+            sub = {n[len(prefix):]: v for n, v in sd.items() if n.startswith(prefix)}
+            if sub:
+                tree.setdefault(f"layers_{k}", {})[net] = _mlp_tree(sub)
+    if not tree:
+        raise ValueError(f"no layers.k.s_net in a state dict with keys {sorted(sd)}")
+    return {"params": tree}
+
+
+def head_state_to_jax(sd: Mapping) -> dict:
+    """Any head's state_dict -> its flax params: a LinearRnvp by its
+    coupling nets, the others by their Linears."""
+    return linear_rnvp_state_to_jax(sd) if any(".s_net." in k for k in sd) else mlp_state_to_jax(sd)
+
+
+def vit_state_to_jax(sd: Mapping) -> dict:
+    """models/vit.py state_dict -> flax VisionTransformer variables:
+    {"params": ...}, and "quant_cal" beside it where the state holds the
+    `amax` buffers of a static int8 ViT. The inverse of vit_state_from_jax."""
+    p: dict = {}
+    for name in ("cls_token", "pos_embed", "register_tokens"):
+        if name in sd:
+            p[name] = _n(sd[name])
+    p["patch_embed"] = {"kernel": np.ascontiguousarray(_n(sd["patch_embed.proj.weight"]).transpose(2, 3, 1, 0)),
+                        "bias": _n(sd["patch_embed.proj.bias"])}
+    p["norm"] = {"scale": _n(sd["norm.weight"]), "bias": _n(sd["norm.bias"])}
+    cal: dict = {}
+    for i in _indices(sd, "blocks"):
+        pre = f"blocks.{i}"
+        blk = {f"norm{j}": {"scale": _n(sd[f"{pre}.norm{j}.weight"]), "bias": _n(sd[f"{pre}.norm{j}.bias"])}
+               for j in (1, 2)}
+        for mod, layers in (("attn", ("qkv", "proj")), ("mlp", ("fc1", "fc2"))):
+            blk[mod] = {layer: _kernel_node(sd, f"{pre}.{mod}.{layer}") for layer in layers}
+            for layer in layers:
+                if f"{pre}.{mod}.{layer}.amax" in sd:
+                    cal.setdefault(f"block_{i}", {}).setdefault(mod, {})[layer] = {
+                        "amax": _n(sd[f"{pre}.{mod}.{layer}.amax"])}
+        for ls in ("ls1", "ls2"):
+            if f"{pre}.{ls}.gamma" in sd:
+                blk[f"{ls}_gamma"] = _n(sd[f"{pre}.{ls}.gamma"])
+        p[f"block_{i}"] = blk
+    return {"params": p, "quant_cal": cal} if cal else {"params": p}
+
+
+def confidence_state_to_jax(cg: ConfidenceState) -> dict:
+    """The port's ConfidenceState -> JAX ConfidenceState fields as numpy
+    (fp32, window_ptr int32): `ConfidenceState(**fields)` on the JAX side."""
+    return {name: np.array(getattr(cg, name).detach().cpu().numpy(),
+                           dtype=np.int32 if name == "window_ptr" else np.float32, copy=True)
+            for name in ConfidenceState._fields}
+
+
+class AdamState(NamedTuple):
+    """optax.ScaleByAdamState's fields in their order: count (int32), mu
+    and nu (trees of the params' layout)."""
+    count: np.ndarray
+    mu: dict
+    nu: dict
+
+
+def train_state_to_jax(params: Mapping, adam: Mapping | None, cg_state: ConfidenceState, step: int) -> tuple:
+    """The port estimator's training state (TraversabilityEstimator.
+    train_state(), the arguments of adopt_train_state) -> (params,
+    opt_state, cg_state fields, step) of a JAX estimator: opt_state is
+    optax.adam's (ScaleByAdamState, EmptyState()) as (AdamState, ()) with
+    Adam's moments in the params' layout (None: fresh, zero moments at
+    count 0). The inverse of train_state_from_jax."""
+    tree = head_state_to_jax(params)
+    if adam is None:
+        zeros = {k: torch.zeros_like(v) for k, v in params.items()}
+        adam = {"step": 0, "exp_avg": zeros, "exp_avg_sq": zeros}
+    opt = AdamState(np.asarray(adam["step"], np.int32), head_state_to_jax(adam["exp_avg"]),
+                    head_state_to_jax(adam["exp_avg_sq"]))
+    return tree, (opt, ()), confidence_state_to_jax(cg_state), int(step)
