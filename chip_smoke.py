@@ -20,7 +20,8 @@ PyTorch version at the main path's shapes, and drives these paths:
   * the runtime, through the entry points a robot stack calls: the same
     mission through `run_replay` and WVNRuntime's callbacks on the card
     (K1 12, K2 1, K3 11 launches per accepted frame, K4 1 per flush, the
-    same counts as the learning phase) and on the CPU, image_batch_callback
+    same counts as the learning phase), its first 20 frames on the card and
+    on the CPU, image_batch_callback
     at B=4 against single callbacks, the learning thread at 10 Hz while
     frames arrive, and the two-process topology (a LearningNode spawned on
     the same card, fed by a FeatureExtractorNode over a Unix socket, its
@@ -109,9 +110,20 @@ PyTorch version at the main path's shapes, and drives these paths:
     its memory, its host time per call in turns with the eager pipeline and
     the exported program; and K1's operator against the direct call, per
     call and in the
-    frame.
+    frame;
+  * the JAX package's implementation switches ([switches] lines, this
+    slice's path, its launch counts set to 0 just before it): bench.py's
+    backbone profile (DINOv2 ViT-S/14 at 448, "flash", ln_dtype bf16, layer
+    scales 1) in bf16 and int8_static through build_fused_batch_fn against
+    its CPU twin, the same ViT under "flash:<bq>:<bk>" for each other tile
+    K1 holds, "auto" at the main path's (1, 6, 785) and config 5's
+    (4, 12, 2117), and flash_attention at head dims 32, 80, 128, 200 and 256
+    with each tile each takes; then every K1 variant against the plain
+    version at bf16_atol, timed beside the plain version and SDPA at the
+    ViT shapes, with its bound.
 
-It checks each path's outputs and that each went through its kernels, and
+Each phase ends with a `[phase] ... done at N s` line (wall time since the
+start). It checks each path's outputs and that each went through its kernels, and
 times the kernels, the frame, a supervision flush and a train step. It
 also prints each kernel body's registers, shared memory and spills
 (ptxas's report of the build), the tensor-core instructions in the SASS by
@@ -140,13 +152,18 @@ runs, rank 0's mesh scenario, rank 0's int8_static mesh scenario, the
 int8_static runtime's replay, one call of the reloaded engine and one call
 of build_fused_batch_fn (each counted the same way); K1's entry also has
 `parallel_tp_rank` (its times at a tp rank's shapes) and
-`operator_overhead_us`, and K4's `parallel_dp_rank_16_hulls`. Without a CUDA device, or outside
+`operator_overhead_us`, and K4's `parallel_dp_rank_16_hulls`. K1's other
+instantiations follow the four kernels as entries of their own, named by
+head dim and tile ("flash_attention bf16 d128 64x128"), with their launches
+on the [switches] path, their times at their first shape and under
+`at_shapes` at every shape timed. Without a CUDA device, or outside
 the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -250,15 +267,24 @@ def kernel_resources(report: str) -> list[str]:
     from wild_visual_navigation_tpu_torch.ops import _cuda
 
     lib = _cuda.library()
-    # name in the report -> (label, dynamic shared memory in bytes, at which shape)
-    kernels = {"flash_fwd_bf16_kernel": ("K1 flash_fwd_bf16_kernel", lib.wvn_flash_attention_smem_bytes(), ""),
-               "flash_fwd_f32_kernel": ("K1 flash_fwd_f32_kernel", 0, ""),
-               "pixelwise_score_kernel": ("K2 pixelwise_score_kernel", lib.wvn_pixelwise_score_smem_bytes(256),
-                                          " at K1=256"),
-               "slic_step_kernel": ("K3 slic_step_kernel", lib.wvn_slic_step_smem_bytes(100, 224, 224),
-                                    " at K=100, 224x224"),
-               "hull_fill_kernelILb1E": ("K4 hull_fill_kernel<march> (points to masks)", 0, ""),
-               "hull_fill_kernelILb0E": ("K4 hull_fill_kernel<fill alone>", 0, "")}
+    # name in the report -> (label, dynamic shared memory in bytes, at which shape); K1's bodies are templates on
+    # the head dim and (bf16) the tile, one entry per instantiation
+    kernels = {}
+    for m in re.finditer(r"flash_fwd_(bf16|f32)_kernelILi(\d+)E(?:Li(\d+)ELi(\d+)E)?", report):
+        D = int(m.group(2))
+        if m.group(1) == "bf16":
+            bq, bk = int(m.group(3)), int(m.group(4))
+            kernels[m.group(0)] = (f"K1 flash_fwd_bf16_kernel<D={D}, BQ={bq}, BK={bk}>",
+                                   lib.wvn_flash_attention_smem_bytes(D, 1, bq, bk), "")
+        else:
+            kernels[m.group(0)] = (f"K1 flash_fwd_f32_kernel<D={D}>", lib.wvn_flash_attention_smem_bytes(D, 0, 0, 0),
+                                   "")
+    kernels |= {"pixelwise_score_kernel": ("K2 pixelwise_score_kernel", lib.wvn_pixelwise_score_smem_bytes(256),
+                                           " at K1=256"),
+                "slic_step_kernel": ("K3 slic_step_kernel", lib.wvn_slic_step_smem_bytes(100, 224, 224),
+                                     " at K=100, 224x224"),
+                "hull_fill_kernelILb1E": ("K4 hull_fill_kernel<march> (points to masks)", 0, ""),
+                "hull_fill_kernelILb0E": ("K4 hull_fill_kernel<fill alone>", 0, "")}
     lines, key, spills = [], None, ""
     for line in report.splitlines():
         if "Function properties for" in line:
@@ -713,6 +739,7 @@ def runtime_phase(dev, card: str, seq: dict, seq_path: Path, learn: dict) -> dic
 
     import wild_visual_navigation_tpu_torch as port
     from wild_visual_navigation_tpu_torch.runtime import load_sequence
+    from wild_visual_navigation_tpu_torch.runtime.replay import Sequence
 
     sequence = load_sequence(str(seq_path))
     n_frames = len(sequence.frames)
@@ -743,20 +770,27 @@ def runtime_phase(dev, card: str, seq: dict, seq_path: Path, learn: dict) -> dic
     require(trav.shape == (rt._H, rt._W) and np.isfinite(trav).all() and np.isfinite(conf).all()
             and trav.min() >= 0 and trav.max() <= 1, "the last frame's maps finite, in [0, 1]")
 
-    # 2. the same replay on the CPU, through the plain versions
+    # 2. the mission's first 20 frames on the card and on the CPU, through the plain versions (as the other
+    # runtimes' phases hold theirs; the whole mission took 76 s on the CPU, over the smoke's time)
+    last = sequence.frames[19].stamp
+    head20 = Sequence(frames=sequence.frames[:20], states=[s for s in sequence.states if s.stamp <= last])
+    rt20 = make_runtime(dev)
+    rep20, losses20, _ = replay_runtime(rt20, head20)
     t0 = time.perf_counter()
     rt_cpu = make_runtime("cpu")
-    rep_cpu, losses_cpu, counts_cpu = replay_runtime(rt_cpu, sequence)
+    rep_cpu, losses_cpu, counts_cpu = replay_runtime(rt_cpu, head20)
     cpu_s = time.perf_counter() - t0
+    trav, conf = rep20.last_result.to_numpy()
     trav_c, conf_c = rep_cpu.last_result.to_numpy()
-    occupied = rt.estimator.buffer.valid.cpu()
-    m_gpu = rt.estimator.buffer.supervision_mask.cpu()[occupied]
+    occupied = rt20.estimator.buffer.valid.cpu()
+    m_gpu = rt20.estimator.buffer.supervision_mask.cpu()[occupied]
     m_cpu = rt_cpu.estimator.buffer.supervision_mask[occupied]
     mask_differ = int((m_gpu != m_cpu).sum())
-    loss_diff = max((abs(a - b) / abs(b) for a, b in zip(losses, losses_cpu)), default=float("nan"))
-    same = all(getattr(rep, f) == getattr(rep_cpu, f) for f in
+    loss_diff = max((abs(a - b) / abs(b) for a, b in zip(losses20, losses_cpu)), default=float("nan"))
+    same = all(getattr(rep20, f) == getattr(rep_cpu, f) for f in
                ("frames_processed", "frames_gated", "supervision_updates", "train_steps", "valid_nodes"))
-    print(f"[runtime] CPU replay (plain versions, {cpu_s:.1f} s): counts equal to the card's: {same} "
+    print(f"[runtime] the first 20 frames on the card and on the CPU (plain versions, {cpu_s:.1f} s): counts equal: "
+          f"{same} "
           f"({rep_cpu.frames_processed} frames, {rep_cpu.supervision_updates} updates, {rep_cpu.train_steps} steps, "
           f"{rep_cpu.valid_nodes} valid nodes); no kernel launched: {sum(counts_cpu.values()) == 0}; supervision masks "
           f"differ in {mask_differ} of {m_gpu.numel()} pixels; the last frame's trav mean abs diff "
@@ -765,11 +799,11 @@ def runtime_phase(dev, card: str, seq: dict, seq_path: Path, learn: dict) -> dic
           f"(tol 5e-2)", flush=True)
     require(same and sum(counts_cpu.values()) == 0, "the CPU replay's counts equal the card's")
     require(mask_differ <= 1e-4 * m_gpu.numel(), "supervision masks agree with the CPU replay")
-    # the bf16 backbones round differently on the two devices, and the heads then train 41 steps on features
-    # that differ by that much, so the maps are held to a bf16-scale tolerance
+    # the bf16 backbones round differently on the two devices, and the heads then train on features that differ
+    # by that much, so the maps are held to a bf16-scale tolerance
     require(np.abs(trav - trav_c).mean() <= 1e-2 and np.abs(trav - trav_c).max() <= 1e-1
             and np.abs(conf - conf_c).mean() <= 5e-2 and loss_diff <= 5e-2, "maps and losses agree with the CPU replay")
-    del rt_cpu
+    del rt_cpu, rt20
 
     # 3. image_batch_callback at B=4 against four image_callbacks
     rt_b, rt_s = make_runtime(dev), make_runtime(dev)
@@ -3024,6 +3058,196 @@ def engine_phase(dev, card: str) -> dict:
     return results
 
 
+# The K1 variants the [switches] phase holds and times: every tile at the ViT shapes, and every head dim (the
+# instantiated ones and two between them, zero-padded) at ViT-S/8's (1, 6, 785) with each tile it takes.
+SWITCH_TILE_SHAPES = {(1, 6, 785, 64): "ViT-S/8 at 224, the main path", (1, 12, 3137, 64): "ViT-B/8 at 448",
+                      (4, 12, 2117, 64): "ViT-B/14 at 644, config 5's 4 cameras", (1, 12, 2117, 64): "ViT-B/14 at 644"}
+SWITCH_HEAD_DIMS = (32, 80, 128, 200, 256)
+SWITCH_BENCH_SIZE = 448  # bench.py's SIZE: DINOv2 ViT-S/14, 1025 tokens
+SWITCH_BF16_MAE = 2e-2  # a bf16 ViT against its CPU twin (tests/test_torch_port_attention_vit.py's bf16 limit)
+SWITCH_INT8_REL = 0.04  # an int8 ViT against its CPU twin, relative mean (tests/test_torch_port_quant.py's)
+
+
+def variant_source(name: str) -> str:
+    """The source file of a K1 variant named as ops/flash_attention.py::
+    variant_name names it ("flash_attention bf16 d128 64x64 ...")."""
+    D = int(re.search(r" d(\d+)", name).group(1))
+    return "flash_attention.cu" if D == 64 else f"flash_attention_d{D}.cu"
+
+
+def switches_phase(dev, card: str, g) -> dict:
+    """Phase 4l [switches]: the JAX package's implementation switches on the
+    card. (a) This slice's path, with the launch counts set to 0 just
+    before it and read just after: bench.py's backbone profile (DINOv2
+    ViT-S/14 at 448, attention "flash", ln_dtype bf16, bf16 and int8_static
+    calibrated on 2 batches) through build_fused_batch_fn on 2 frames
+    against its CPU twin; the same ViT as "flash:<bq>:<bk>" for each other
+    tile; "auto" at the main path's (1, 6, 785) (resolves "xla_bf16": no K1)
+    and config 5's (4, 12, 2117) (resolves "flash": 12 K1 launches); and
+    flash_attention at each head dim of SWITCH_HEAD_DIMS with each tile it
+    takes. (b) Each variant against the plain version at bf16_atol (the
+    plain version without the last kv tile fails it), timed beside the
+    plain version and SDPA, with its bound. Returns the kernels line's
+    entries for the variants."""
+    import torch
+
+    import wild_visual_navigation_tpu_torch as port
+    from wild_visual_navigation_tpu_torch.models import vit as tvit
+    from wild_visual_navigation_tpu_torch.models.registry import get_model
+    from wild_visual_navigation_tpu_torch.ops.flash_attention import (
+        TILES,
+        bf16_atol,
+        flash_attention,
+        padded_head_dim,
+        variant_name,
+        xla_attention,
+    )
+    from wild_visual_navigation_tpu_torch.ops.resize import imagenet_normalize
+    from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_batch_fn
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    size = SWITCH_BENCH_SIZE
+    frames = torch.from_numpy(rng.random((2, 3, size, size), dtype=np.float32))
+    cal = [torch.from_numpy(rng.random((2, 3, size, size), dtype=np.float32)) for _ in range(2)]
+    mlp = get_model({"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": 384, "hidden_sizes": [256, 32, 1],
+                                                             "reconstruction": True}},
+                    generator=torch.Generator().manual_seed(1))
+    mlp.eval().requires_grad_(False)
+    mlp_dev = get_model({"name": "SimpleMLP", "simple_mlp_cfg": {"input_size": 384, "hidden_sizes": [256, 32, 1],
+                                                                 "reconstruction": True}}, device=dev)
+    mlp_dev.load_state_dict(mlp.state_dict())
+    mlp_dev.eval().requires_grad_(False)
+    # seeded weights with the layer scales at 1, as the reference's int8 band test sets them: at DINOv2's 1e-5 the
+    # blocks would add next to nothing to the tokens, and any two ViTs would agree
+    weights = {k: torch.ones_like(v) if k.endswith(".gamma") else v for k, v in tvit.make_vit(
+        "dinov2", "vit_small", 14, generator=torch.Generator().manual_seed(0), device="cpu").state_dict().items()}
+
+    def vit(impl, quant=None, device=dev):
+        return tvit.make_vit("dinov2", "vit_small", 14, attention_impl=impl, ln_dtype=torch.bfloat16, quant=quant,
+                             device=device, state_dict=weights).eval().requires_grad_(False)
+
+    torch.cuda.synchronize()
+    port.reset_launch_counts()
+    # (a) bench.py's backbone profile, bf16 and int8_static, against the CPU twins (one CPU forward each: the twin's
+    # traversability is build_fused_batch_fn's head on the twin's features)
+    profile = {}
+    x_cpu = imagenet_normalize(frames)
+    for quant in (None, "int8_static"):
+        card_vit = vit("flash", quant)
+        if quant:
+            tvit.calibrate_int8_static(card_vit, [imagenet_normalize(c.to(dev)) for c in cal])
+        cpu_vit = tvit.make_vit("dinov2", "vit_small", 14, ln_dtype=torch.bfloat16, quant=quant, device="cpu",
+                                state_dict={k: v.cpu() for k, v in card_vit.state_dict().items()})
+        before = flash_attention.launches
+        with torch.no_grad():
+            got = tvit.dense_features(card_vit, imagenet_normalize(frames.to(dev))).cpu()
+            want = tvit.dense_features(cpu_vit, x_cpu)
+            trav_cpu = mlp(want.permute(0, 2, 3, 1).reshape(-1, 384))[:, 0].reshape(want.shape[0], *want.shape[2:])
+        trav = build_fused_batch_fn(card_vit, mlp_dev)(frames.to(dev)).cpu()
+        launched = flash_attention.launches - before
+        err = float((got - want).abs().mean())
+        rel = err / float(want.std())
+        t_err = float((trav - trav_cpu).abs().max())
+        name = quant or "bf16"
+        profile[name] = {"mae": err, "rel": rel, "trav_max": t_err, "k1": launched, "vit": card_vit}
+        ok = (err <= SWITCH_BF16_MAE) if quant is None else (rel <= SWITCH_INT8_REL)
+        print(f"[switches] (a) bench.py's backbone (DINOv2 ViT-S/14 at {size}, flash, ln_dtype bf16, {name}, layer "
+              f"scales 1) on 2 frames: features {tuple(got.shape)} against the CPU twin mean abs diff {err:.3e} "
+              f"(relative {rel:.3e}; limit "
+              f"{'mean ' + str(SWITCH_BF16_MAE) if quant is None else 'relative ' + str(SWITCH_INT8_REL)}), "
+              f"build_fused_batch_fn's per-patch traversability max abs diff {t_err:.3e} (tol 5e-2); K1 launches "
+              f"{launched} (24: 12 per forward)", flush=True)
+        require(ok and t_err <= 5e-2 and bool(torch.isfinite(got).all()) and launched == 24,
+                f"bench.py's backbone profile ({name}) on the card against its CPU twin")
+        if quant is None:
+            ref_feats = got
+    # the other tiles through the ViT's own names
+    for bq, bk in TILES[64][1:]:
+        card_vit = vit(f"flash:{bq}:{bk}")
+        before = dict(flash_attention.variant_launches)
+        with torch.no_grad():
+            got = tvit.dense_features(card_vit, imagenet_normalize(frames.to(dev))).cpu()
+        launched = {k: v - before.get(k, 0) for k, v in flash_attention.variant_launches.items()
+                    if v != before.get(k, 0)}
+        err = float((got - ref_feats).abs().mean())
+        print(f"[switches] (a) the same ViT as flash:{bq}:{bk}: K1 launches {launched}; features against the (64, 64) "
+              f"tile's mean abs diff {err:.3e} (limit {SWITCH_BF16_MAE})", flush=True)
+        require(launched == {f"bf16 d64 {bq}x{bk}": 12} and err <= SWITCH_BF16_MAE,
+                f"flash:{bq}:{bk} runs K1 at its tile")
+    # "auto" at the main path's and config 5's shapes
+    for name, (backbone, typ, ps, B, px, want_impl) in {
+            "main path": ("dino", "vit_small", 8, 1, 224, "xla_bf16"),
+            "config 5": ("dinov2", "vit_base", 14, 4, 644, "flash")}.items():
+        auto = tvit.make_vit(backbone, typ, ps, attention_impl="auto", device=dev,
+                             generator=torch.Generator().manual_seed(2)).eval().requires_grad_(False)
+        tvit._AUTO_RESOLVED_LOGGED.clear()
+        before = flash_attention.launches
+        with torch.no_grad():
+            out = auto(torch.rand(B, 3, px, px, device=dev, generator=g))["patch_tokens"]
+        torch.cuda.synchronize()
+        resolved = sorted(tvit._AUTO_RESOLVED_LOGGED)
+        H = auto.cfg.num_heads
+        N = (px // ps) ** 2 + 1
+        print(f"[switches] (a) auto at the {name}'s (B={B}, heads={H}, S={N}): resolved {resolved} -> {want_impl}; "
+              f"K1 launches {flash_attention.launches - before}", flush=True)
+        require(resolved == [(B, H, N)] and tvit.resolve_auto(B, H, N) == want_impl
+                and flash_attention.launches - before == (12 if want_impl == "flash" else 0)
+                and bool(torch.isfinite(out).all()), f"auto at the {name}'s shape")
+    # every head dim with each tile it takes, through flash_attention
+    dim_cases = [(D, t) for D in SWITCH_HEAD_DIMS for t in TILES[padded_head_dim(D)]]
+    dim_inputs = {}
+    for D, tile in dim_cases:
+        q, k, v = dim_inputs.setdefault(D, tuple(torch.randn(1, 6, 785, D, device=dev, generator=g).bfloat16()
+                                                 for _ in range(3)))
+        flash_attention(q, k, v, D**-0.5, *tile)
+    torch.cuda.synchronize()
+    path_launches = dict(flash_attention.variant_launches)
+    print(f"[switches] (a) launches of this slice's path by K1 variant: {path_launches}", flush=True)
+
+    # (b) the backbone's host time, then each variant against the plain version, timed
+    for name, p in profile.items():
+        p["host_ms"] = wall_ms(build_fused_batch_fn(p.pop("vit"), mlp_dev), [(frames.to(dev),)] * (WARMUP + N_TIMED))
+        print(f"[time] bench.py's backbone ({name}) through build_fused_batch_fn, B=2 at {size}: {p['host_ms']:.3f} ms "
+              f"per call on the host clock | {card}", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed = []
+    for shape in SWITCH_TILE_SHAPES:
+        for tile in TILES[64]:
+            timed.append((shape, tile))
+    for D, tile in dim_cases:
+        timed.append(((1, 6, 785, D), tile))
+    variants = {}
+    for shape, tile in timed:
+        B, H, S, D = shape
+        q, k, v = (torch.randn(shape, device=dev, generator=g).bfloat16() for _ in range(3))
+        scale = D**-0.5
+        ref = xla_attention(q, k, v, scale).float()
+        err, tol, tail = k1_bf16_check(flash_attention(q, k, v, scale, *tile), ref, q, k, v,
+                                       lambda *a: xla_attention(*a[:3], scale), bf16_atol)
+        require(err <= tol < tail, f"K1 {variant_name(D, torch.bfloat16, *tile)} at {shape}")
+        qkvs = [tuple(torch.randn(shape, device=dev, generator=g).bfloat16() for _ in range(3))
+                for _ in range(WARMUP + N_TIMED)]
+        k_ms = device_ms(lambda q, k, v: flash_attention(q, k, v, scale, *tile), qkvs)
+        p_ms = device_ms(lambda q, k, v: xla_attention(q, k, v, scale), qkvs)
+        s_ms = device_ms(lambda q, k, v: sdpa(q, k, v, scale=scale), qkvs)
+        b = bound(4 * B * H * S * D * 2, {"bf16_tensor": 4 * B * H * S * S * D})
+        name = variant_name(D, torch.bfloat16, *tile)
+        what = f" ({SWITCH_TILE_SHAPES[shape]})" if shape in SWITCH_TILE_SHAPES else ""
+        print(f"[time] K1 {name} at {shape}{what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch SDPA (reference line only) {s_ms:.4f} ms; bound "
+              f"{b['bound_ms']:.6f} ms ({b['bound_by']}), share of the bound {b['bound_ms'] / k_ms:.3f}; max abs err "
+              f"{err:.3e} (tol {tol:.3e}; without the last kv tile {tail:.3e}) | {card}", flush=True)
+        label = f"flash_attention {name}" + (f" (D={D})" if D != padded_head_dim(D) else "")
+        entry = variants.setdefault((D, tile), {"name": label, "launches": path_launches.get(name, 0),
+                                                "max_abs_err": err, "shape": list(shape), "ms": k_ms, "plain_ms": p_ms,
+                                                "library_ms": s_ms, **b, "at_shapes": {}})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["at_shapes"]["x".join(map(str, shape))] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": s_ms, **b}
+    require(all(v["launches"] > 0 for v in variants.values()), "every K1 variant launched on this slice's path")
+    print(f"[switches] phase done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"variants": list(variants.values()), "profile": profile}
+
+
 def main() -> int:
     import torch
 
@@ -3052,6 +3276,11 @@ def main() -> int:
     from wild_visual_navigation_tpu_torch.utils.params import confidence_state_from_jax, load_head_npz, mlp_state_from_jax
 
     # ---- 1. the card
+    t_main = time.perf_counter()
+
+    def phase_done(label: str) -> None:
+        print(f"[phase] {label} done at {time.perf_counter() - t_main:.1f} s", flush=True)
+
     card = card_line()
     print(card)
     kind = torch.cuda.get_device_name(0)
@@ -3259,6 +3488,8 @@ def main() -> int:
           f"pooled features max abs diff {f_diff:.3e} (tol 0.25)")
     require(seg_agree >= 0.95 and t_diff <= 5e-2 and c_diff <= 5e-2 and f_diff <= 0.25, "agreement with the CPU run")
 
+    phase_done("kernel checks and the main path (3, 4)")
+
     # ---- 4b. the online learning loop on the recorded mission, at the product's settings
     seq = dict(np.load(ROOT / "assets/sequences/demo_mission.npz"))
     torch.cuda.synchronize()
@@ -3310,15 +3541,18 @@ def main() -> int:
           f"loss difference {loss_diff:.3e}")
     require(rep_cpu["valid_nodes"] == rep["valid_nodes"], "the same valid-node count on the CPU")
     require(mask_differ <= 1e-4 * m_gpu.numel(), "supervision masks agree with the CPU replay")
+    phase_done("learning (4b)")
 
     # ---- 4c. the runtime: WVNRuntime's callbacks, learning thread and two-process nodes, at the product's settings
     learn = {"flushes": rep["flushes"], "valid_nodes": rep["valid_nodes"], "steps": est.step}
     runtime_launches = runtime_phase(dev, card, seq, ROOT / "assets/sequences/demo_mission.npz", learn)
     require(all(v > 0 for v in runtime_launches.values()), "every kernel launched on the runtime's path")
     launches = runtime_launches
+    phase_done("runtime (4c)")
 
     # ---- 4d. SLIC at 448: the card's per-tile order against the plain whole-image loop
     slic_448_phase(dev, card, g, mlp, cg_state, demo)
+    phase_done("slic 448 (4d)")
 
     # ---- 4e. the STEGO path: K2 at D = 90, the STEGO frame at 448, the Jackal runtime at 224
     stego = stego_phase(dev, card, g, demo, ROOT / "assets/sequences/demo_mission.npz")
@@ -3326,6 +3560,7 @@ def main() -> int:
     require(stego_launches["slic_step"] == 0 and all(stego_launches[k] > 0 for k in
                                                      ("flash_attention", "pixelwise_score", "fill_hulls")),
             "the STEGO replay launched K1, K2 and K4, and K3 never")
+    phase_done("stego (4e)")
 
     # ---- 4f. SIFT, histogram and LK; the anomaly and graph frames; the anomaly runtime; the golden replay
     features_launches = features_phase(dev, card)
@@ -3336,26 +3571,36 @@ def main() -> int:
     require(all(modes["graph_launches"][k] > 0 for k in ("flash_attention", "slic_step")),
             "the graph frames launched K1 and K3")
     require(modes["golden_launches"]["fill_hulls"] > 0, "the golden replay launched K4")
+    phase_done("features, modes, golden (4f)")
 
     # ---- 4g. the torchvision path; the grid map and the smart carrot; the closed-loop obstacle scenario
     tv = torchvision_phase(dev, card, demo, ROOT / "assets/sequences/demo_mission.npz")
     require(tv["torchvision_launches"]["slic_step"] > 0 and tv["torchvision_launches"]["fill_hulls"] > 0,
             "the torchvision replay launched K3 and K4")
+    phase_done("torchvision (4g)")
 
     # ---- 4h. the offline tools: dataset generation, the ablation sweep, the parameter search, the soak
     offline = offline_phase(dev, card, g, demo)
     require(all(v > 0 for v in offline["offline_launches"].values()), "the offline tools launched every kernel")
+    phase_done("offline (4h)")
 
     # ---- 4i. the parallel layer: the meshed runtime on 4 Gloo ranks, the distributed trainer, NCCL at world size 1,
     # and the quantised backbones on the mesh
     par = parallel_phase(dev, card, seq, rep["frames"], size, S, D)
     qmesh = quant_mesh_phase(dev, card)
+    phase_done("parallel (4i)")
 
     # ---- 4j. the int8 backbones: the product runtime, BASELINE config 5, torch._int_mm's shape rules
     quant_launches = quant_phase(dev, card, ROOT / "assets/sequences/demo_mission.npz")
+    phase_done("quant (4j)")
 
     # ---- 4k. the exported engine: the tool at its defaults, an int8_static engine, K1's operator
     engine = engine_phase(dev, card)
+    phase_done("engine (4k)")
+
+    # ---- 4l. the implementation switches: bench.py's backbone profile, K1 at every head dim and tile, "auto"
+    switches = switches_phase(dev, card, g)
+    phase_done("switches (4l)")
 
     # ---- 5. timings (device time from CUDA events; frame latency on the host clock)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3518,6 +3763,13 @@ def main() -> int:
     kernels[0]["parallel_tp_rank"] = {"x".join(map(str, shape)): t for shape, t in par["k1"].items()}
     kernels[3]["parallel_dp_rank_16_hulls"] = par["k4_16"]
     kernels[0]["operator_overhead_us"] = engine["op_overhead_us"]
+    # K1's other instantiations: launches on the [switches] path (counts set to 0 just before it), each timed at
+    # its first shape (`at_shapes`: every shape it was timed at)
+    kernels += [{"name": v["name"], "route": "cuda",
+                 "source": f"wild_visual_navigation_tpu_torch/csrc/{variant_source(v['name'])}",
+                 "replaces": sources["flash_attention"][1], **{k: x for k, x in v.items() if k != "name"}}
+                for v in switches["variants"]]
+    phase_done("timings (5)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

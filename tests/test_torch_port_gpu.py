@@ -55,14 +55,84 @@ def test_flash_attention_matches_plain(cuda, B, S, layout, dtype):
 
 
 def test_flash_attention_refuses_other_head_dims_and_misaligned_views(cuda):
+    """K1 takes every D <= 256 (the TPU kernel's bound) and the tiles of
+    TILES; a larger D, a tile the card cannot hold at that D, a block on
+    the fp32 body and a misaligned view raise, and launch nothing."""
     from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention
 
-    q = torch.zeros(1, 1, 16, 32, device=cuda)
-    with pytest.raises(ValueError, match="head dim 64"):
+    n = flash_attention.launches
+    q = torch.zeros(1, 1, 16, 320, device=cuda)
+    with pytest.raises(ValueError, match="head dim must be in"):
         flash_attention(q, q, q)
+    b = torch.zeros(1, 1, 16, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"it takes \[\(64, 64\), \(128, 64\)\]"):
+        flash_attention(b, b, b, 1.0, 64, 128)  # 288 KB of shared memory at D = 256
+    with pytest.raises(ValueError, match="is not one the card holds"):
+        flash_attention(b[..., :64], b[..., :64], b[..., :64], 1.0, 1152, 1152)  # a TPU tile
+    f = torch.zeros(1, 1, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="fp32 kernel has its own tile"):
+        flash_attention(f, f, f, 1.0, 128, 64)
     odd = torch.zeros(1, 1, 16, 65, device=cuda, dtype=torch.bfloat16)[..., 1:]  # 2-byte offset base
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention(odd, odd, odd)
+    assert flash_attention.launches == n
+
+
+@pytest.mark.parametrize("D", [32, 65, 80, 128, 200, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dims_match_plain(cuda, D, dtype):
+    """K1 at every instantiated head dim and at head dims between them
+    (65, 80, 200: zero-padded to the next one, the output a view of its
+    first D columns), at the ragged S = 200 and 785, contiguous and on the
+    strided views of a qkv buffer (bf16_atol; fp32 1e-4)."""
+    from wild_visual_navigation_tpu_torch.ops.flash_attention import (
+        bf16_atol,
+        flash_attention,
+        padded_head_dim,
+        variant_name,
+        xla_attention,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(D)
+    for S in (200, 785):
+        for layout in ("contiguous", "qkv"):
+            if layout == "contiguous":
+                q, k, v = (torch.randn(2, 3, S, D, device=cuda, generator=g).to(dtype) for _ in range(3))
+            else:
+                q, k, v = torch.randn(2, S, 3, 3, D, device=cuda, generator=g).to(dtype).permute(2, 0, 3, 1, 4)
+            before = dict(flash_attention.variant_launches)
+            out = flash_attention(q, k, v, D**-0.5)
+            torch.cuda.synchronize()
+            name = variant_name(D, dtype)
+            assert flash_attention.variant_launches[name] == before.get(name, 0) + 1
+            Dp = padded_head_dim(D)
+            assert out.shape == (2, 3, S, D) and out.stride() == (S * 3 * Dp, Dp, 3 * Dp, 1)
+            ref = xla_attention(q, k, v, D**-0.5).float()
+            atol = bf16_atol(ref) if dtype == torch.bfloat16 else 1e-4
+            torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("tile", [(64, 64), (128, 64), (64, 128), (128, 128)])
+@pytest.mark.parametrize("shape", [(1, 6, 785, 64), (4, 6, 785, 64), (1, 6, 1025, 64), (1, 6, 3137, 64),
+                                   (1, 12, 2117, 64), (1, 12, 785, 64), (4, 12, 785, 64), (1, 12, 3137, 64),
+                                   (4, 12, 2117, 64), (1, 6, 257, 64)])
+def test_flash_attention_tiles_match_plain_at_vit_shapes(cuda, shape, tile):
+    """Each tile K1 holds at D = 64 at chip_smoke.py's ATTN_SHAPES (the
+    ViTs' shapes) against the plain version at bf16_atol; the plain version
+    without the last kv tile of 64 rows fails that limit."""
+    from wild_visual_navigation_tpu_torch.ops.flash_attention import bf16_atol, flash_attention, xla_attention
+
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + tile[0] + tile[1])
+    q, k, v = (torch.randn(shape, device=cuda, generator=g).bfloat16() for _ in range(3))
+    n = flash_attention.launches
+    out = flash_attention(q, k, v, 0.125, *tile)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    ref = xla_attention(q, k, v, 0.125).float()
+    atol = bf16_atol(ref)
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=0)
+    keep = (shape[2] - 1) // 64 * 64
+    assert float((xla_attention(q, k[:, :, :keep], v[:, :, :keep], 0.125).float() - ref).abs().max()) > atol
 
 
 def _slic_inputs(cuda, B, H, W, K, seed):
@@ -1073,3 +1143,49 @@ def test_meshed_int8_layers_on_the_card(cuda, tmp_path):
     for r in out:
         assert r["launches"] == 2 and np.isfinite(r["vit"]).all()
         assert np.abs(r["vit"] - want).mean() / want.std() < 0.04
+
+
+@pytest.mark.parametrize("impl", ["flash", "flash:128:64", "flash:64:128", "flash:128:128", "xla_bf16", "auto"])
+def test_vit_attention_impls_on_the_card_match_their_cpu_twin(cuda, impl):
+    """DINOv2 ViT-S/14 at 224 in bf16 with bf16 LayerNorms (the reference
+    bench's backbone) under each attention_impl against the same ViT on
+    the CPU: the flash names launch K1 12 times at their tile, "xla_bf16"
+    never, "auto" at (1, 6, 257) takes "xla_bf16" as the reference's rule
+    does; features within the bf16 ViT's mean abs error of 2e-2."""
+    from wild_visual_navigation_tpu_torch.models import vit as tvit
+    from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention
+
+    g = torch.Generator().manual_seed(0)
+    card = tvit.make_vit("dinov2", "vit_small", 14, attention_impl=impl, ln_dtype=torch.bfloat16, device=cuda,
+                         generator=g)
+    cpu = tvit.make_vit("dinov2", "vit_small", 14, attention_impl=impl, ln_dtype=torch.bfloat16, device="cpu",
+                        state_dict={k: v.cpu() for k, v in card.state_dict().items()})
+    x = torch.rand(1, 3, 224, 224, generator=torch.Generator().manual_seed(1))
+    before = dict(flash_attention.variant_launches)
+    with torch.no_grad():
+        got = card(x.to(cuda))["patch_tokens"].cpu()
+        want = cpu(x)["patch_tokens"]
+    launched = {k: v - before.get(k, 0) for k, v in flash_attention.variant_launches.items() if v != before.get(k, 0)}
+    if impl.startswith("flash"):
+        bq, bk = (int(p) for p in impl.split(":")[1:]) if ":" in impl else (64, 64)
+        assert launched == {f"bf16 d64 {bq}x{bk}": 12}
+    else:
+        assert launched == {}
+    assert torch.isfinite(got).all() and float((got - want).abs().mean()) < 2e-2
+
+
+@pytest.mark.parametrize("impl,k3", [("auto", 11), ("pallas", 11), ("pallas-interpret", 0), ("xla", 0)])
+def test_slic_batch_impls_on_the_card(cuda, impl, k3):
+    """slic_batch's impls on a CUDA image: "auto" and "pallas" run K3 (11
+    launches), "pallas-interpret" and "xla" the plain step and the
+    whole-image loop on the card (no launch); each agrees with the CPU's
+    whole-image loop at 0.95 or more (chip_smoke.py's 10-iteration limit)."""
+    from wild_visual_navigation_tpu_torch.ops.slic import slic_batch
+    from wild_visual_navigation_tpu_torch.ops.slic_fused import slic_step
+
+    imgs = torch.rand(2, 3, 224, 224, device=cuda, generator=torch.Generator(device=cuda).manual_seed(5))
+    n = slic_step.launches
+    seg = slic_batch(imgs, impl=impl)
+    torch.cuda.synchronize()
+    assert slic_step.launches == n + k3 and seg.shape == (2, 224, 224) and seg.dtype == torch.int32
+    assert float((seg.cpu() == slic_batch(imgs.cpu(), impl="xla")).float().mean()) >= 0.95

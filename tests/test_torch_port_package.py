@@ -135,8 +135,9 @@ def test_hull_masks_takes_only_cuda_tensors(device):
 
 def test_build_is_keyed_on_the_sources():
     assert _cuda.BUILD_DIR.parent == PKG / "csrc"
-    assert {p.name for p in _cuda.CSRC.glob("*.cu")} == {"flash_attention.cu", "pixelwise_score.cu", "slic_step.cu",
-                                                        "fill_hulls.cu"}
+    assert {p.name for p in _cuda.CSRC.glob("*.cu")} == {"flash_attention.cu", "flash_attention_d32.cu",
+                                                        "flash_attention_d128.cu", "flash_attention_d256.cu",
+                                                        "pixelwise_score.cu", "slic_step.cu", "fill_hulls.cu"}
     assert set(_cuda.SIGNATURES) >= {f"wvn_{n}" for n in ("flash_attention_fwd", "pixelwise_score", "slic_step",
                                                            "fill_hulls")}
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
@@ -161,9 +162,9 @@ def test_build_compiles_each_source_in_parallel_then_links(tmp_path, monkeypatch
     assert lib.exists() and lib.parent == tmp_path / "_build" and _cuda._digest() in lib.name
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in c]
-    assert len(compiles) == len(_cuda._sources()) == 4 and all("sm_90a" in c for c in calls)
-    assert len(calls) == 5 and "-shared" in calls[-1]
-    assert _cuda.build() == lib and len(log.read_text().splitlines()) == 5  # cached: no second build
+    assert len(compiles) == len(_cuda._sources()) == 7 and all("sm_90a" in c for c in calls)
+    assert len(calls) == 8 and "-shared" in calls[-1]
+    assert _cuda.build() == lib and len(log.read_text().splitlines()) == 8  # cached: no second build
 
 
 def test_converted_head_matches_flax_checkpoint():

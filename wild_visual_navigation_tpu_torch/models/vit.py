@@ -8,17 +8,40 @@ tools/convert_dino_weights.py.
 Numerics follow the reference's defaults: the linear layers and the
 patch embedding compute in `dtype` (bf16 unless asked otherwise), with
 their weights stored in that dtype as flax casts them at use; the
-LayerNorms compute and return fp32. The patch embedding is a reshape
+LayerNorms compute in fp32 and return `ln_dtype` (fp32 unless asked
+otherwise), as flax's LayerNorm(dtype=ln_dtype) computes its statistics
+and affine in fp32 and casts the result; the final norm returns fp32
+whatever `ln_dtype` says, as the reference's does. A bf16 `ln_dtype`
+changes nothing a bf16 linear layer sees (it casts its input to bf16
+anyway); it changes what a quantised layer sees, whose activation
+abs-max is then taken over bf16 values. The patch embedding is a reshape
 plus a matrix product, so no cuDNN convolution (and its default TF32)
 is involved.
 
-attention_impl:
+attention_impl, the reference's names with the reference's meaning:
   * "flash" — ops/flash_attention.py::flash_attention, kernel K1 on CUDA
     tensors at every shape (the plain version on CPU tensors); under
-    torch.export the operator `wvn::flash_attention`;
-  * "eager" — the plain einsum/softmax/einsum form;
+    torch.export the operator `wvn::flash_attention`. The default here,
+    where the reference's make_vit defaults to "xla": the card's path
+    runs K1;
+  * "flash:<block_q>:<block_k>" — K1 with that tile (ops/flash_attention.py::
+    TILES); a tile K1 does not hold at the head dim raises when the ViT is
+    built;
+  * "flash_interpret" — K1's plain version on any device, the explicit
+    request for the kernel's semantics without the kernel (the
+    reference's Pallas interpret mode);
+  * "xla" — the plain einsum/softmax/einsum form; "eager" is its older
+    name here;
+  * "xla_bf16" — the reference's bf16-score form
+    (ops/flash_attention.py::xla_attention_bf16);
   * "xla_int8" — both attention products in int8
-    (models/quant.py::attention_scores_int8).
+    (models/quant.py::attention_scores_int8);
+  * "auto" — the reference's rule by shape: "flash" when B·H >= 48 and
+    N >= 512, else "xla_bf16", with one line on stderr per resolved
+    shape. It resolves on the global (B, H), as the reference resolves
+    inside jit on global shapes: the model's unsharded head count under
+    `shard_heads_`, and the batch times the dp group's size when frames
+    are split over one (`share_scales_` names it).
 
 quant (the JAX package's W8A8 backbone, models/quant.py): "int8" puts
 qkv, proj, fc1 and fc2 on int8 products with a per-call activation scale,
@@ -54,8 +77,8 @@ on the global tensors (`share_scales_` names the process groups):
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
-from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -63,7 +86,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..ops.flash_attention import flash_attention, xla_attention
+from ..ops.flash_attention import flash_attention, kernel_tile, xla_attention, xla_attention_bf16
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
 from .quant import attention_scores_int8, int8_matmul_scaled, max_over, quantize_symmetric, quantize_with_scale
 from .simple_mlp import lecun_normal_
@@ -92,8 +115,36 @@ VIT_CONFIGS = {
     "dinov2_vit_large_14": ViTConfig(patch_size=14, embed_dim=1024, depth=24, num_heads=16),
 }
 
-ATTENTION_IMPLS = ("flash", "eager", "xla_int8")
+ATTENTION_IMPLS = ("flash", "flash_interpret", "xla", "eager", "xla_bf16", "xla_int8", "auto")  # and "flash:<bq>:<bk>"
 QUANT_MODES = (None, "int8", "int8_static")
+# The (B, H, N) shapes "auto" has resolved, each logged once on stderr: the
+# choice changes the output's rounding, so it should be visible.
+_AUTO_RESOLVED_LOGGED: set = set()
+
+
+def attention_blocks(attention_impl: str) -> tuple[int, int] | None:
+    """K1's (block_q, block_k) for "flash:<bq>:<bk>", parsed as the
+    reference parses it; (0, 0) for "flash"; None for the other names.
+    Raises for a name the reference does not take."""
+    if attention_impl.startswith("flash:"):
+        parts = attention_impl.split(":")
+        if len(parts) != 3 or not all(p.isdigit() for p in parts[1:]):
+            raise ValueError(f"attention_impl {attention_impl!r}: expected 'flash:<block_q>:<block_k>'")
+        return int(parts[1]), int(parts[2])
+    if attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS} or 'flash:<block_q>:<block_k>', got "
+                         f"{attention_impl!r}")
+    return (0, 0) if attention_impl == "flash" else None
+
+
+def resolve_auto(B: int, H: int, N: int) -> str:
+    """The reference's "auto" rule on global shapes: "flash" when B·H >= 48
+    and N >= 512, else "xla_bf16"; logs each new (B, H, N) on stderr."""
+    impl = "flash" if (B * H >= 48 and N >= 512) else "xla_bf16"
+    if (B, H, N) not in _AUTO_RESOLVED_LOGGED:
+        _AUTO_RESOLVED_LOGGED.add((B, H, N))
+        print(f"[vit] attention auto(B={B}, heads={H}, S={N}) -> {impl}", file=sys.stderr)
+    return impl
 
 
 class QuantLinear(nn.Module):
@@ -200,25 +251,44 @@ def _row_parallel(x: torch.Tensor, lin: nn.Linear, group) -> torch.Tensor:
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig, attention_impl: str, dtype, device, quant: Optional[str] = None):
         super().__init__()
-        if attention_impl not in ATTENTION_IMPLS:
-            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
         D = cfg.embed_dim
         self.num_heads = cfg.num_heads  # this rank's heads under tensor parallelism
+        self.global_heads = cfg.num_heads  # the model's, which "auto" resolves on
         self.head_dim = D // cfg.num_heads
         self.attention_impl = attention_impl
+        self.blocks = attention_blocks(attention_impl)
+        if self.blocks is not None and dtype in (torch.float32, torch.bfloat16):
+            kernel_tile(self.head_dim, dtype, *self.blocks)  # raises for a tile K1 does not hold
         self.tp_group = None
         self.scale_group = None  # "xla_int8": the group its q, k, v abs-maxes are MAX-reduced over
+        self.batch_group = None  # the group this rank's frames are one share of ("auto" counts the whole batch)
         self.qkv = _make_linear(quant, D, 3 * D, dtype, device)
         self.proj = _make_linear(quant, D, D, dtype, device)
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+        impl, blocks = self.attention_impl, self.blocks
+        if impl == "auto":
+            B = q.shape[0] * (dist.get_world_size(self.batch_group) if self.batch_group is not None else 1)
+            impl = resolve_auto(B, self.global_heads, q.shape[2])
+            blocks = (0, 0) if impl == "flash" else None
+        if blocks == (0, 0):
+            return flash_attention(q, k, v, scale)
+        if blocks is not None:
+            return flash_attention(q, k, v, scale, *blocks)
+        if impl == "flash_interpret":
+            return xla_attention(q, k, v, scale)  # K1's plain version, on any device
+        if impl == "xla_bf16":
+            return xla_attention_bf16(q, k, v, scale)
+        if impl == "xla_int8":
+            return attention_scores_int8(q, k, v, scale, group=self.scale_group)
+        return xla_attention(q, k, v, scale)  # "xla", "eager"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, _ = x.shape
         H, Dh = self.num_heads, self.head_dim
         qkv = _linear(x, self.qkv).reshape(B, N, 3, H, Dh).permute(2, 0, 3, 1, 4)
         q, k, v = qkv.unbind(0)  # (B, H, N, Dh) views of the qkv product, no copies
-        attend = {"flash": flash_attention, "eager": xla_attention,
-                  "xla_int8": partial(attention_scores_int8, group=self.scale_group)}
-        out = attend[self.attention_impl](q, k, v, Dh**-0.5)
+        out = self._attend(q, k, v, Dh**-0.5)
         # K1 writes a (B, N, H, Dh) buffer, so on the card this is a view
         return _row_parallel(out.transpose(1, 2).reshape(B, N, H * Dh), self.proj, self.tp_group)
 
@@ -245,9 +315,11 @@ class LayerScale(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig, attention_impl: str, dtype, device, quant: Optional[str] = None):
+    def __init__(self, cfg: ViTConfig, attention_impl: str, dtype, device, quant: Optional[str] = None,
+                 ln_dtype: torch.dtype = torch.float32):
         super().__init__()
         D = cfg.embed_dim
+        self.ln_dtype = ln_dtype
         self.norm1 = nn.LayerNorm(D, eps=cfg.ln_eps, device=device)
         self.attn = Attention(cfg, attention_impl, dtype, device, quant)
         self.norm2 = nn.LayerNorm(D, eps=cfg.ln_eps, device=device)
@@ -257,8 +329,8 @@ class Block(nn.Module):
         self.ls2 = LayerScale(D, cfg.layerscale_init, device) if ls else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x.float())))
-        return x + self.ls2(self.mlp(self.norm2(x.float())))
+        x = x + self.ls1(self.attn(self.norm1(x.float()).to(self.ln_dtype)))
+        return x + self.ls2(self.mlp(self.norm2(x.float()).to(self.ln_dtype)))
 
 
 def _torch_bicubic_matrix(in_size: int, out_size: int, offset: float = 0.1) -> np.ndarray:
@@ -321,16 +393,18 @@ class PatchEmbed(nn.Module):
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, attention_impl: str = "flash", dtype: torch.dtype = torch.bfloat16,
                  device=None, generator: torch.Generator | None = None, state_dict: dict | None = None,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, ln_dtype: torch.dtype = torch.float32):
         """Weights from `state_dict` where one is given (the layers are
         then built on the meta device, so no initialiser runs), else the
-        seeded draw of reset_parameters. `quant`: one of QUANT_MODES."""
+        seeded draw of reset_parameters. `quant`: one of QUANT_MODES;
+        `ln_dtype`: the blocks' LayerNorm output type."""
         super().__init__()
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
         self.cfg = cfg
         self.dtype = dtype
         self.quant = quant
+        self.ln_dtype = ln_dtype
         D = cfg.embed_dim
         build = device if state_dict is None else "meta"
         self.patch_embed = PatchEmbed(cfg, dtype, build)
@@ -338,7 +412,7 @@ class VisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid_size**2, D, device=build))
         if cfg.num_register_tokens:
             self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, D, device=build))
-        self.blocks = nn.ModuleList(Block(cfg, attention_impl, dtype, build, quant) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(Block(cfg, attention_impl, dtype, build, quant, ln_dtype) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(D, eps=cfg.ln_eps, device=build)
         if state_dict is None:
             self.reset_parameters(generator)
@@ -472,11 +546,13 @@ def share_scales_(vit: VisionTransformer, dp_group, mesh_group) -> VisionTransfo
     `mesh_group` (dp and tp) for a row-parallel proj or fc2 and for
     "xla_int8"'s q, k and v, whose features or heads tp splits as well
     (`dp_group` where tp left the block's layer whole). None: no
-    reduction. Call it after `shard_heads_`, on every rank."""
+    reduction. `dp_group` is also the group whose frames "auto" attention
+    counts as one batch. Call it after `shard_heads_`, on every rank."""
     for blk in vit.blocks:
         attn, mlp = blk.attn, blk.mlp
         attn_rows = mesh_group if attn.tp_group is not None else dp_group
         attn.scale_group = attn_rows
+        attn.batch_group = dp_group
         for lin, group in ((attn.qkv, dp_group), (attn.proj, attn_rows), (mlp.fc1, dp_group),
                            (mlp.fc2, mesh_group if mlp.tp_group is not None else dp_group)):
             if isinstance(lin, QuantLinear):
@@ -510,10 +586,12 @@ def dense_features(vit: VisionTransformer, img: torch.Tensor) -> torch.Tensor:
 def make_vit(backbone: str = "dinov2", backbone_type: str = "vit_small", patch_size: int = 14,
              attention_impl: str = "flash", dtype: torch.dtype = torch.bfloat16, device=None,
              generator: torch.Generator | None = None, state_dict: dict | None = None,
-             quant: Optional[str] = None) -> VisionTransformer:
-    """Instantiate by the reference's (backbone, backbone_type, patch_size)."""
+             quant: Optional[str] = None, ln_dtype: torch.dtype = torch.float32) -> VisionTransformer:
+    """Instantiate by the reference's (backbone, backbone_type, patch_size).
+    The reference's perf profile is attention_impl="xla_bf16" (or "auto")
+    with ln_dtype=bfloat16; its bench builds the ViT with ln_dtype=bfloat16."""
     key = f"{backbone}_vit_{backbone_type.replace('vit_', '')}_{patch_size}"
     if key not in VIT_CONFIGS:
         raise ValueError(f"Unknown ViT config {key}; have {sorted(VIT_CONFIGS)}")
     return VisionTransformer(VIT_CONFIGS[key], attention_impl=attention_impl, dtype=dtype, device=device,
-                             generator=generator, state_dict=state_dict, quant=quant)
+                             generator=generator, state_dict=state_dict, quant=quant, ln_dtype=ln_dtype)

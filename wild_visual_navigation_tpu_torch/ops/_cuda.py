@@ -42,9 +42,10 @@ COMPILE_FLAGS = ("-Xptxas", "-v")  # per-kernel registers, shared memory and spi
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (every pointer, the stream included, is c_void_p)
 SIGNATURES = {
-    # q, k, v, o, host int64[12] of (B, H, S) strides, B, H, S, D, dtype, scale, stream
-    "wvn_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "wvn_flash_attention_smem_bytes": [],
+    # q, k, v, o, host int64[12] of (B, H, S) strides, B, H, S, D, dtype, scale, block_q, block_k, stream
+    "wvn_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # D, dtype, block_q, block_k
+    "wvn_flash_attention_smem_bytes": [_I, _I, _I, _I],
     # hw, zsts, starts, runs, coef, w1t, b1, gt, v, consts, trav, reco, B, Hp, H, W, K1, R, D, stream
     "wvn_pixelwise_score": [_P] * 12 + [_I] * 6 + [_F, _P],
     "wvn_pixelwise_hidden_width": [],
@@ -168,16 +169,23 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`; the camera thread and the learning
-    thread launch kernels at the same time."""
+def count_launch(wrapper, variant: str | None = None) -> None:
+    """Add one to `wrapper.launches` (and to `wrapper.variant_launches`
+    [variant], for a wrapper that launches several instantiations); the
+    camera thread and the learning thread launch kernels at the same time."""
     with _count_lock:
         wrapper.launches += 1
+        if variant is not None:
+            wrapper.variant_launches[variant] = wrapper.variant_launches.get(variant, 0) + 1
 
 
 def set_launches(wrapper, n: int) -> None:
+    """Set `wrapper.launches` to n; at 0 its count by instantiation starts
+    afresh too."""
     with _count_lock:
         wrapper.launches = n
+        if n == 0 and hasattr(wrapper, "variant_launches"):
+            wrapper.variant_launches = {}
 
 
 def check(err: int, what: str) -> None:

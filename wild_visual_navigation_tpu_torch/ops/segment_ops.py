@@ -88,27 +88,38 @@ def segment_centers(seg: torch.Tensor, num_segments: int):
     return sums / counts.clamp_min(1.0)[:, None], counts > 0
 
 
-def adjacency_list(seg: torch.Tensor, num_segments: int, max_edges: int = 512):
+ADJACENCY_IMPLS = ("auto", "matrix", "hash")
+
+
+def adjacency_list(seg: torch.Tensor, num_segments: int, max_edges: int = 512, impl: str = "auto"):
     """Undirected 4-neighbourhood adjacency of segments, fixed size.
 
     seg (H, W) or a batch (B, H, W) -> edges (2, max_edges) int32 and
     edge_valid (max_edges,) bool, or (B, 2, max_edges) and (B, max_edges):
     valid pair keys `a + b·(S+1)` first, in ascending order, truncated
-    to the smallest keys, then padding. S <= 256 counts a co-occurrence
-    matrix per image; larger S dedups pair keys with `torch.unique` over
-    the batch at once."""
+    to the smallest keys, then padding. The reference's `impl`s, in the
+    same layout: "matrix" counts a co-occurrence matrix per image (ids
+    outside [0, S) ignored) and, as the reference, refuses S > 256; "hash"
+    dedups pair keys with `torch.unique` over the batch at once (negative
+    ids ignored); "auto" takes "matrix" for S <= 256, else "hash"."""
+    if impl not in ADJACENCY_IMPLS:
+        raise ValueError(f"adjacency_list: impl must be one of {ADJACENCY_IMPLS}, got {impl!r}")
     if seg.ndim == 2:
-        edges, valid = adjacency_list(seg[None], num_segments, max_edges)
+        edges, valid = adjacency_list(seg[None], num_segments, max_edges, impl)
         return edges[0], valid[0]
     S = num_segments
     div = S + 1
     if div * div > _INT32_MAX:
         raise ValueError(f"adjacency_list supports at most 46339 segments (got {S})")
+    if impl == "auto":
+        impl = "matrix" if S <= 256 else "hash"
+    if impl == "matrix" and S > 256:
+        raise ValueError(f"adjacency_list impl='matrix' is gated to <= 256 segments (S^2 key table); got {S}")
     B = seg.shape[0]
     dev = seg.device
     s = seg.to(torch.int64)
     pairs = [(s[:, :, :-1], s[:, :, 1:]), (s[:, :-1, :], s[:, 1:, :])]
-    if S <= 256:
+    if impl == "matrix":
         # pair counts per image; out-of-range ids land in a spare last slot
         base = (torch.arange(B, device=dev) * (S * S))[:, None, None]
         m = torch.zeros(B * S * S + 1, dtype=torch.int64, device=dev)

@@ -109,12 +109,9 @@ def _assign_plain(feats: torch.Tensor, centers: torch.Tensor, width: int, ws: fl
     return torch.where(min_s > win2, best_s, best)
 
 
-def slic(img: torch.Tensor, num_components: int = 100, compactness: float = 10.0, iterations: int = 10) -> torch.Tensor:
-    """img: (3, H, W) RGB in [0, 1] -> (H, W) int32 ids in
-    [0, num_components): the plain whole-image Lloyd loop on the CPU,
-    `slic_batch` (K3) on anything else."""
-    if img.device.type != "cpu":
-        return slic_batch(img[None], num_components, compactness, iterations)[0]
+def _slic_whole(img: torch.Tensor, num_components: int, compactness: float, iterations: int) -> torch.Tensor:
+    """The whole-image Lloyd loop of one (3, H, W) image, in plain torch on
+    the image's device: (H, W) int32 ids."""
     _, H, W = img.shape
     K = num_components
     ws, win2 = slic_geometry(K, compactness, H, W)
@@ -129,10 +126,36 @@ def slic(img: torch.Tensor, num_components: int = 100, compactness: float = 10.0
     return _assign_plain(feats, centers, W, ws, win2).reshape(H, W).to(torch.int32)
 
 
+def slic(img: torch.Tensor, num_components: int = 100, compactness: float = 10.0, iterations: int = 10) -> torch.Tensor:
+    """img: (3, H, W) RGB in [0, 1] -> (H, W) int32 ids in
+    [0, num_components): the plain whole-image Lloyd loop on the CPU,
+    `slic_batch` (K3) on anything else."""
+    if img.device.type != "cpu":
+        return slic_batch(img[None], num_components, compactness, iterations)[0]
+    return _slic_whole(img, num_components, compactness, iterations)
+
+
+SLIC_IMPLS = ("auto", "pallas", "xla", "pallas-interpret")
+
+
 def slic_batch(imgs: torch.Tensor, num_components: int = 100, compactness: float = 10.0,
-               iterations: int = 10) -> torch.Tensor:
-    """(B, 3, H, W) RGB in [0, 1] -> (B, H, W) int32 ids. The Lloyd
-    loop of slic_fused.slic_batch_fused; its step is K3 on CUDA."""
+               iterations: int = 10, impl: str = "auto") -> torch.Tensor:
+    """(B, 3, H, W) RGB in [0, 1] -> (B, H, W) int32 ids, by the
+    reference's `impl`s:
+      * "pallas": the Lloyd loop of slic_fused.slic_batch_fused, whose step
+        is K3 on CUDA (its plain version on the CPU);
+      * "pallas-interpret": the same loop with K3's plain step
+        (`slic_step_plain`) on any device;
+      * "xla": the whole-image loop (`slic`'s) per image, on any device;
+      * "auto": "pallas". The reference resolves it to "xla" from a TPU
+        measurement; the port's main path runs K3, held at a label
+        agreement of 0.99 or more with the whole-image loop at 448 px.
+    The per-tile and whole-image sums round in other orders, so over
+    several iterations boundary pixels can move between the two loops."""
+    if impl not in SLIC_IMPLS:
+        raise ValueError(f"slic_batch: impl must be one of {SLIC_IMPLS}, got {impl!r}")
+    if impl == "xla":
+        return torch.stack([_slic_whole(img, num_components, compactness, iterations) for img in imgs])
     from .slic_fused import slic_batch_fused
 
-    return slic_batch_fused(imgs, num_components, compactness, iterations)
+    return slic_batch_fused(imgs, num_components, compactness, iterations, interpret=impl == "pallas-interpret")

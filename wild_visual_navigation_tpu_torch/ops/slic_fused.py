@@ -156,14 +156,20 @@ slic_step.launches = 0
 
 
 def slic_batch_fused(imgs: torch.Tensor, num_components: int = 100, compactness: float = 10.0,
-                     iterations: int = 10) -> torch.Tensor:
+                     iterations: int = 10, interpret: bool = False) -> torch.Tensor:
     """(B, 3, H, W) RGB in [0, 1] -> (B, H, W) int32 ids in
-    [0, num_components): `iterations` steps plus a final assignment."""
+    [0, num_components): `iterations` steps plus a final assignment.
+    interpret=True takes `slic_step_plain` on any device (the reference's
+    interpret mode), where a CUDA image otherwise runs K3."""
     B, _, H, W = imgs.shape
     K = num_components
     ws, win2 = slic_geometry(K, compactness, H, W)
     feats = pixel_features(rgb_to_lab(imgs.float()), ws)  # (B, 5, HW)
     centers = feats[:, :, _init_index(K, H, W).to(imgs.device)].transpose(1, 2)  # (B, K, 5)
+    if interpret:
+        for _ in range(iterations):
+            _, centers = slic_step_plain(feats, centers, W, ws, win2)
+        return slic_step_plain(feats, centers, W, ws, win2)[0].reshape(B, H, W)
     scratch = None
     if imgs.device.type == "cuda":
         scratch = SlicScratch.allocate(B, H, W, K, imgs.device)

@@ -202,9 +202,10 @@ def shard_module(model: torch.nn.Module, spec: dict, mesh: DeviceMesh) -> torch.
 
     A VisionTransformer keeps each rank's slices as plain tensors
     (models/vit.py::shard_heads_); a quantised one (or one with "xla_int8"
-    attention) also learns the groups its activation scales are reduced
-    over (models/vit.py::share_scales_), tp = 1 included, since its frames
-    may still split over dp. A head's linear layers become DTensors
+    or "auto" attention) also learns the groups its activation scales are
+    reduced over and its frames are split over (models/vit.py::
+    share_scales_), tp = 1 included, since its frames may still split over
+    dp. A head's linear layers become DTensors
     through `parallelize_module`: a Shard(0) layer is ColwiseParallel, a
     Shard(1) layer RowwiseParallel (a column-split layer with no row-split
     successor gathers its output). Every rank holds the full weights
@@ -216,7 +217,7 @@ def shard_module(model: torch.nn.Module, spec: dict, mesh: DeviceMesh) -> torch.
     if isinstance(model, VisionTransformer):
         if tp > 1:
             shard_heads_(model, group, rank, tp, spec)
-        if model.quant is not None or any(b.attn.attention_impl == "xla_int8" for b in model.blocks):
+        if model.quant is not None or any(b.attn.attention_impl in ("xla_int8", "auto") for b in model.blocks):
             dp, _, dp_group = mesh_axis(mesh, "dp")
             share_scales_(model, dp_group if dp > 1 else None, mesh_group(mesh))
         return model
