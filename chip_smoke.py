@@ -3237,9 +3237,8 @@ def switches_phase(dev, card: str, g) -> dict:
         print(f"[time] K1 {name} at {shape}{what}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch SDPA (reference line only) {s_ms:.4f} ms; bound "
               f"{b['bound_ms']:.6f} ms ({b['bound_by']}), share of the bound {b['bound_ms'] / k_ms:.3f}; max abs err "
               f"{err:.3e} (tol {tol:.3e}; without the last kv tile {tail:.3e}) | {card}", flush=True)
-        label = f"flash_attention {name}" + (f" (D={D})" if D != padded_head_dim(D) else "")
-        entry = variants.setdefault((D, tile), {"name": label, "launches": path_launches.get(name, 0),
-                                                "max_abs_err": err, "shape": list(shape), "ms": k_ms, "plain_ms": p_ms,
+        entry = variants.setdefault((D, tile), {"name": f"flash_attention {name}",
+                                                "launches": path_launches.get(name, 0), "max_abs_err": err, "shape": list(shape), "ms": k_ms, "plain_ms": p_ms,
                                                 "library_ms": s_ms, **b, "at_shapes": {}})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["at_shapes"]["x".join(map(str, shape))] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": s_ms, **b}

@@ -1148,18 +1148,23 @@ def test_meshed_int8_layers_on_the_card(cuda, tmp_path):
 @pytest.mark.parametrize("impl", ["flash", "flash:128:64", "flash:64:128", "flash:128:128", "xla_bf16", "auto"])
 def test_vit_attention_impls_on_the_card_match_their_cpu_twin(cuda, impl):
     """DINOv2 ViT-S/14 at 224 in bf16 with bf16 LayerNorms (the reference
-    bench's backbone) under each attention_impl against the same ViT on
-    the CPU: the flash names launch K1 12 times at their tile, "xla_bf16"
-    never, "auto" at (1, 6, 257) takes "xla_bf16" as the reference's rule
-    does; features within the bf16 ViT's mean abs error of 2e-2."""
+    bench's backbone) under each attention_impl, layer scales at 1 (at
+    DINOv2's 1e-5 the blocks add next to nothing to the tokens), against
+    the same ViT on the CPU: the flash names launch K1 12 times at their
+    tile, "xla_bf16" never, "auto" at (1, 6, 257) takes "xla_bf16" as the
+    reference's rule does; features within the bf16 ViT's mean abs error
+    of 2e-2, which the CPU twin with its attention zeroed misses by over
+    10 times."""
     from wild_visual_navigation_tpu_torch.models import vit as tvit
     from wild_visual_navigation_tpu_torch.ops.flash_attention import flash_attention
 
     g = torch.Generator().manual_seed(0)
+    weights = {k: torch.ones_like(v) if k.endswith(".gamma") else v
+               for k, v in tvit.make_vit("dinov2", "vit_small", 14, device="cpu", generator=g).state_dict().items()}
     card = tvit.make_vit("dinov2", "vit_small", 14, attention_impl=impl, ln_dtype=torch.bfloat16, device=cuda,
-                         generator=g)
+                         state_dict=weights)
     cpu = tvit.make_vit("dinov2", "vit_small", 14, attention_impl=impl, ln_dtype=torch.bfloat16, device="cpu",
-                        state_dict={k: v.cpu() for k, v in card.state_dict().items()})
+                        state_dict=weights)
     x = torch.rand(1, 3, 224, 224, generator=torch.Generator().manual_seed(1))
     before = dict(flash_attention.variant_launches)
     with torch.no_grad():
@@ -1172,6 +1177,10 @@ def test_vit_attention_impls_on_the_card_match_their_cpu_twin(cuda, impl):
     else:
         assert launched == {}
     assert torch.isfinite(got).all() and float((got - want).abs().mean()) < 2e-2
+    for block in cpu.blocks:
+        block.ls1.gamma.data.zero_()
+    with torch.no_grad():
+        assert float((got - cpu(x)["patch_tokens"]).abs().mean()) > 10 * 2e-2
 
 
 @pytest.mark.parametrize("impl,k3", [("auto", 11), ("pallas", 11), ("pallas-interpret", 0), ("xla", 0)])

@@ -46,6 +46,7 @@ it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -123,12 +124,22 @@ def kernel_tile(D: int, dtype: torch.dtype, block_q: int = 0, block_k: int = 0) 
     return tile
 
 
-def variant_name(D: int, dtype: torch.dtype, block_q: int = 0, block_k: int = 0) -> str:
-    """The instantiation a call runs, as counted in
-    `flash_attention.variant_launches`: e.g. "bf16 d64 64x64", "fp32 d128"."""
-    Dp = padded_head_dim(D)
+@functools.lru_cache(maxsize=None)
+def _plan(D: int, dtype: torch.dtype, block_q: int, block_k: int) -> tuple[int, tuple[int, int] | None, str]:
+    """(the instantiated head dim, the tile, the count's key) of a call,
+    validated once per distinct (D, dtype, block_q, block_k): the frame's
+    12 calls repeat one signature."""
     tile = kernel_tile(D, dtype, block_q, block_k)
-    return f"fp32 d{Dp}" if tile is None else f"bf16 d{Dp} {tile[0]}x{tile[1]}"
+    Dp = padded_head_dim(D)
+    name = f"fp32 d{Dp}" if tile is None else f"bf16 d{Dp} {tile[0]}x{tile[1]}"
+    return Dp, tile, name if Dp == D else f"{name} (D={D})"
+
+
+def variant_name(D: int, dtype: torch.dtype, block_q: int = 0, block_k: int = 0) -> str:
+    """The key a call counts under in `flash_attention.variant_launches`:
+    the instantiation it runs, e.g. "bf16 d64 64x64", "fp32 d128", and a
+    zero-padded head dim's own, e.g. "bf16 d128 64x64 (D=80)"."""
+    return _plan(D, dtype, block_q, block_k)[2]
 
 
 def _outer_strides(name: str, t: torch.Tensor) -> list[int]:
@@ -147,26 +158,27 @@ def _outer_strides(name: str, t: torch.Tensor) -> list[int]:
     return strides
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int, block_k: int) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int,
+           block_k: int) -> tuple[int, tuple[int, int] | None, str]:
     """What every call must satisfy, on every device: one (B, H, S, D)
-    shape, D <= 256, and a tile the card holds at D for the dtype."""
+    shape, D <= 256, and a tile the card holds at D for the dtype. Returns
+    the call's `_plan`."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"flash_attention: q, k, v must share one (B, H, S, D) shape, got {q.shape}, {k.shape}, {v.shape}")
-    kernel_tile(q.shape[-1], q.dtype if q.dtype in _DTYPES else torch.bfloat16, block_q, block_k)
+    return _plan(q.shape[-1], q.dtype if q.dtype in _DTYPES else torch.bfloat16, block_q, block_k)
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, block_q: int,
-            block_k: int) -> torch.Tensor:
-    """K1 on CUDA tensors (bf16 or fp32, D <= 256), or raise. A head dim
-    between the instantiated ones runs the next one up on zero-padded
-    copies, and returns the view of its first D output columns."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, Dp: int,
+            tile: tuple[int, int] | None, name: str) -> torch.Tensor:
+    """K1 on CUDA tensors (bf16 or fp32) at the instantiated head dim Dp and
+    tile of the call's `_plan`, or raise. A head dim between the
+    instantiated ones runs Dp on zero-padded copies, and returns the view
+    of its first D output columns."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtype must be float32 or bfloat16 for all of q, k, v, got {q.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q, k, v on different devices: {q.device}, {k.device}, {v.device}")
     B, H, S, D = q.shape
-    Dp = padded_head_dim(D)
-    tile = kernel_tile(D, q.dtype, block_q, block_k)
     if Dp != D:
         q, k, v = (torch.nn.functional.pad(t, (0, Dp - D)) for t in (q, k, v))
     out = torch.empty((B, S, H, Dp), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -179,7 +191,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, 
             B, H, S, Dp, _DTYPES[q.dtype], float(sm_scale), bq, bk, _cuda.stream_of(q),
         )
     _cuda.check(err, "flash_attention")
-    _cuda.count_launch(flash_attention, variant_name(D, q.dtype, block_q, block_k))
+    _cuda.count_launch(flash_attention, name)
     return out if Dp == D else out[..., :D]
 
 
@@ -187,10 +199,10 @@ def _flash_attention_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_
                           block_k: int = 0) -> torch.Tensor:
     """The operator's body: K1 for CUDA tensors, the plain version
     (contiguous) for CPU tensors."""
-    _check(q, k, v, block_q, block_k)
+    Dp, tile, name = _check(q, k, v, block_q, block_k)
     if q.device.type == "cpu":
         return xla_attention(q, k, v, sm_scale).contiguous()
-    return _launch(q, k, v, sm_scale, block_q, block_k)
+    return _launch(q, k, v, sm_scale, Dp, tile, name)
 
 
 flash_attention_op = torch.library.custom_op("wvn::flash_attention", _flash_attention_body, mutates_args=())
@@ -222,4 +234,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale:
 
 
 flash_attention.launches = 0
-flash_attention.variant_launches = {}  # launches by instantiation (`variant_name`), reset with `launches`
+flash_attention.variant_launches = {}  # launches by `variant_name`, reset with `launches`

@@ -96,7 +96,7 @@ def pixelwise_score(mlp, feat: torch.Tensor, out_h: int, out_w: int, cg_cfg: Con
     Wr, br = Wl[:, 1:], bl[1:]
     f32 = feat.float()
     zp = torch.einsum("bdhw,kd->bhwk", f32, Wr)
-    z = interpolate_bilinear_mxu_nhwc(zp, out_h, out_w, precision="highest").reshape(-1, K)
+    z = interpolate_bilinear_mxu_nhwc(zp, out_h, out_w).reshape(-1, K)
     s = interpolate_bilinear_mxu_precise(torch.einsum("bdhw,d->bhw", f32, br)[:, None], out_h, out_w).reshape(-1)
     lin = rows32 @ (Wr @ Wr.T) + 2.0 * ((Wr @ br)[None, :] - z)
     reco = ((rows32 * lin).sum(-1) + br @ br - 2.0 * s + interpolate_norm_sq_mxu(f32, out_h, out_w).reshape(-1)) / D

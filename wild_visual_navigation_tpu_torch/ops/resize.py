@@ -121,21 +121,10 @@ def bilinear_matrix(out_size: int, in_size: int, device=None, dtype=torch.float3
 PRECISIONS = (None, "default", "high", "highest")  # the reference's `precision=` names (jax.lax.Precision)
 
 
-def _check_precision(precision) -> None:
-    """The reference's `precision=` picks how many bf16 passes the TPU's
-    matrix unit takes for an fp32 product; "highest" is full fp32. The
-    port's products are full fp32 for every name: PyTorch computes fp32
-    matrix products in fp32 on the CPU, and on the card with TF32 off,
-    PyTorch's default, which the port never changes."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
-
-
-def interpolate_bilinear_mxu(x: torch.Tensor, new_h: int, new_w: int, precision=None) -> torch.Tensor:
+def interpolate_bilinear_mxu(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     """interpolate_bilinear as two constant-matrix products (the
     reference's `interpolate_bilinear_mxu`), in x.dtype, each product
-    rounded to it. `precision`: see `_check_precision`."""
-    _check_precision(precision)
+    rounded to it."""
     h, w = x.shape[-2], x.shape[-1]
     Mh = bilinear_matrix(new_h, h, x.device, x.dtype)
     Mw = bilinear_matrix(new_w, w, x.device, x.dtype)
@@ -146,8 +135,16 @@ def interpolate_bilinear_mxu(x: torch.Tensor, new_h: int, new_w: int, precision=
 def interpolate_bilinear_mxu_nhwc(x: torch.Tensor, new_h: int, new_w: int, precision=None) -> torch.Tensor:
     """interpolate_bilinear_mxu on channels-last input: (B, h, w, C) ->
     (B, new_h, new_w, C), the same two products in x.dtype, each rounded
-    to it (the reference's form of the same name)."""
-    _check_precision(precision)
+    to it (the reference's form of the same name).
+
+    `precision` takes the reference's values, a name of PRECISIONS or a
+    jax.lax.Precision member, which picks how many bf16 passes the TPU's
+    matrix unit takes for an fp32 product. It changes nothing here: PyTorch
+    computes fp32 products in fp32 on the CPU, and on the card with TF32
+    off, PyTorch's default, which the port never changes."""
+    name = getattr(precision, "name", precision)  # a jax.lax.Precision member, by its name
+    if (name.lower() if isinstance(name, str) else name) not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS} or a jax.lax.Precision, got {precision!r}")
     h, w = x.shape[-3], x.shape[-2]
     Mh = bilinear_matrix(new_h, h, x.device, x.dtype)
     Mw = bilinear_matrix(new_w, w, x.device, x.dtype)
@@ -156,9 +153,9 @@ def interpolate_bilinear_mxu_nhwc(x: torch.Tensor, new_h: int, new_w: int, preci
 
 
 def interpolate_bilinear_mxu_precise(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
-    """interpolate_bilinear_mxu of x in fp32 at "highest" precision, for
-    the terms of the Gram scorer that cancel (the reference's form)."""
-    return interpolate_bilinear_mxu(x.float(), new_h, new_w, precision="highest")
+    """interpolate_bilinear_mxu of x in fp32, for the terms of the Gram
+    scorer that cancel (the reference's form, at its "highest" precision)."""
+    return interpolate_bilinear_mxu(x.float(), new_h, new_w)
 
 
 def interpolate_norm_sq_mxu(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
