@@ -1,0 +1,10 @@
+"""flush_ms.online: flush_ms.learn in the online cell, where the learner's
+thread contends with the camera's frames, so it moves frame_p50_ms there."""
+import importlib.util
+import pathlib
+
+_s = importlib.util.spec_from_file_location(
+    "portbench_metric_flush_ms_learn", pathlib.Path(__file__).with_name("flush_ms.learn.py"))
+_base = importlib.util.module_from_spec(_s)
+_s.loader.exec_module(_base)
+read = _base.read
