@@ -2553,7 +2553,9 @@ def drive(rt, kind: str, payload):
 def profile_ops(fn, inputs) -> dict:
     """torch.profiler over fn(*x) for each input: wall ms, device kernel ms
     and kernel launches per call, the busy share, and the device ms per call
-    of each operator's own kernels (self time, by operator name)."""
+    of each operator's own kernels (self time, by operator name). Where fn
+    drives WVNRuntime, the runtime's spans are on while the profiler records
+    (utils/timers.py), so wall ms and the busy share include their cost."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

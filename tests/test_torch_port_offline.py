@@ -1,7 +1,8 @@
 """The torch port's offline stack (offline/: metrics, dataset, loggers,
-trainer), its timers and device monitor (utils/timers.py,
-utils/device_monitor.py) and the estimator's whole-object pickle, on the
-CPU, against the JAX package where it has the same function.
+trainer), its trace exporter and device memory statistics
+(utils/timers.py::profile_trace, utils/device_monitor.py) and the
+estimator's whole-object pickle, on the CPU, against the JAX package where
+it has the same function.
 
 Inputs are made with numpy from fixed seeds. Tolerances: metrics, datasets
 and batches exactly (copies of numpy code); the offline trainer started
@@ -14,7 +15,9 @@ the same order)."""
 
 import csv
 import dataclasses
+import json
 import os
+import threading
 
 import jax
 import numpy as np
@@ -30,21 +33,10 @@ from wild_visual_navigation_tpu_torch.offline import GraphTravDataset, OfflineTr
 from wild_visual_navigation_tpu_torch.offline import metrics as tmetrics
 from wild_visual_navigation_tpu_torch.traversability.estimator import TraversabilityEstimator
 from wild_visual_navigation_tpu_torch.traversability.nodes import MissionNode, SupervisionNode
-from wild_visual_navigation_tpu_torch.utils.device_monitor import (
-    DeviceMonitor,
-    SystemLevelDeviceMonitor,
-    accumulate_memory,
-    device_memory_stats,
-)
+from wild_visual_navigation_tpu_torch.utils import timers
+from wild_visual_navigation_tpu_torch.utils.device_monitor import device_memory_stats
 from wild_visual_navigation_tpu_torch.utils.params import train_state_from_jax
-from wild_visual_navigation_tpu_torch.utils.timers import (
-    ClassContextTimer,
-    ClassTimer,
-    Timer,
-    accumulate_time,
-    block_until_ready,
-    profile_trace,
-)
+from wild_visual_navigation_tpu_torch.utils.timers import profile_trace
 
 LOSS_RTOL = 1e-4  # per-epoch train_loss, the port's trainer against JAX's from the same weights
 SCORE_ATOL = 1e-5  # validation scores after training, the same comparison
@@ -331,66 +323,37 @@ def test_estimator_pickle_continues_identically(tmp_path):
     assert again.step == a2.step and again._device == torch.device("cpu")
 
 
-# ---------------------------------------------------------------- timers and device monitor
-class _Thing:
-    @accumulate_time
-    def work(self, n):
-        return sum(range(n))
-
-    @accumulate_time(block=True)
-    def tensor_work(self):
-        return {"a": (torch.ones(4) * 2,), "b": [torch.zeros(2)]}
-
-    @accumulate_memory
-    def alloc(self):
-        return torch.ones((16, 16))
-
-
-def test_timers_accumulate_and_store(tmp_path):
-    """The port's twin of the JAX test of the same name."""
-    t = _Thing()
-    for _ in range(3):
-        t.work(1000)
-    assert float(t.tensor_work()["a"][0].sum()) == 8.0
-    with ClassContextTimer(t, "block"):
-        pass
-    with Timer("quiet", verbose=False) as tm:
-        pass
-    assert tm.elapsed >= 0.0
-    ct = ClassTimer([t], ["thing"])
-    s = str(ct)
-    assert "thing.work" in s and "n=3" in s and "thing.tensor_work" in s
-    path = ct.store(str(tmp_path))
-    assert os.path.exists(path)
-    text = open(path).read()
-    assert "block" in text and text.startswith("object,method,calls,mean_ms,p50_ms,p95_ms,total_s\n")
-    assert str(ClassTimer([t], ["thing"], enabled=False)) == ""
-    x = torch.ones(3)
-    assert block_until_ready(x) is x  # CPU tensors: nothing to wait for
-
-
+# ---------------------------------------------------------------- trace exporter and device memory
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    """Every thread's work, the program's spans on for the block only."""
+    go, done = threading.Event(), threading.Event()
+
+    def learner():  # started before the block, as the runtime's learning thread is
+        go.wait(5.0)
+        timers.new_request()
+        with timers.span("estimator.train_step"):
+            torch.ones(64).sum()
+        done.set()
+
+    th = threading.Thread(target=learner)
+    th.start()
     with profile_trace(str(tmp_path / "trace")) as prof:
         torch.ones(64).sum()
-    assert prof is not None and os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+        go.set()
+        assert done.wait(5.0)
+    th.join(5.0)
+    assert prof is not None and not th.is_alive()
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("name") == "wvn.estimator.train_step" and e.get("tid") == th.native_id for e in events)
+    timers.new_request()
+    assert timers.span("a") is timers.span("b")  # off again after the block
     with profile_trace(str(tmp_path / "off"), enabled=False) as prof:
         pass
     assert prof is None and not os.path.exists(tmp_path / "off")
 
 
-def test_device_monitor(tmp_path):
-    """The port's twin of the JAX test: a CPU device reads zeros, and the
-    monitors still record and store."""
-    t = _Thing()
-    t.alloc()
-    assert t._memory_samples["alloc"][0]["delta_mb"] == 0.0
-    with DeviceMonitor("test", verbose=False, device="cpu") as m:
-        _ = torch.ones((8, 8))
-    assert m.delta_mb == 0.0
+def test_device_monitor():
+    """A CPU device reads zeros, as the JAX package's backends without
+    memory statistics do."""
     assert device_memory_stats("cpu") == {"bytes_in_use": 0, "peak_bytes_in_use": 0, "bytes_limit": 0,
                                           "peak_bytes_reserved": 0}
-    mon = SystemLevelDeviceMonitor([t], ["thing"], device="cpu")
-    mon.update(step=0)
-    path = mon.store(str(tmp_path))
-    assert os.path.exists(path) and open(path).read().count("\n") == 2
-    assert os.path.exists(os.path.join(str(tmp_path), "memory_thing.csv"))

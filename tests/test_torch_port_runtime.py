@@ -39,6 +39,7 @@ from wild_visual_navigation_tpu_torch.ops import _cuda
 from wild_visual_navigation_tpu_torch.parallel import DistributedTrainer, create_mesh
 from wild_visual_navigation_tpu_torch.runtime import WVNRuntime, run_replay, synthetic_sequence
 from wild_visual_navigation_tpu_torch.runtime.replay import SimWorld, load_sequence, run_closed_loop, save_sequence
+from wild_visual_navigation_tpu_torch.utils import timers
 from wild_visual_navigation_tpu_torch.utils.params import train_state_from_jax, vit_state_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -245,6 +246,57 @@ def test_rate_gate(port_backbone):
     report = run_replay(rt, seq)
     assert report.frames_processed == 3 and report.frames_gated == 27
     assert rt.events.snapshot()["events"]["image_callback_canceled"]["value"] == "canceled due to rate"
+
+
+def test_counters_show_gated_frames_and_the_learner(port_backbone):
+    """counters(): the journal's gates, the mission graph's inserts, the
+    estimator lock, the flushes and the blocking reads, beside the runtime's
+    own hot swaps, step, buffer fill and launches."""
+    rt = _tiny(port_backbone)
+    rt.fe_params.image_callback_rate = 1.0  # gate to 1 Hz
+    timers.reset()
+    report = run_replay(rt, synthetic_sequence(duration=3.0, frame_rate=10.0, state_rate=5.0, image_size=SIZE,
+                                               seed=2))
+    c = rt.counters()
+    assert report.frames_gated == 27 and c["events.image_callback_canceled.rate"] == 27
+    assert c["events.image_callback_received"] == 30 and "events.image_callback_canceled.scheduler" not in c
+    assert c["frames.inserted"] + c.get("frames.gated.graph", 0) == 3 == report.frames_processed
+    assert c["buffer_fill"] == c["frames.inserted"] == len(rt.estimator._slot_to_node)
+    assert c["hot_swaps"] == rt.hot_swaps and c["estimator.step"] == rt.estimator.step
+    assert c["lock.acquired"] > 0 and c.get("lock.contended", 0) == 0  # one thread: nothing waits
+    assert c["supervision.flushes"] > 0 and c["sync.supervision_counts"] > 0
+    assert set(c["launches"]) == {"flash_attention", "pixelwise_score", "slic_step", "fill_hulls"}
+
+
+def test_spans_of_a_camera_call_share_its_request(port_backbone):
+    """With tracing on, each image_callback is one request rooted at
+    `frame`; the frame's stages are its descendants, the learner's spans
+    belong to other requests."""
+    rt = _tiny(port_backbone, learning_thread_rate=10.0, load_save_checkpoint_rate=2.0, logging_thread_rate=5.0)
+    timers.reset()
+    timers.set_tracing(True)
+    try:
+        run_replay(rt, synthetic_sequence(duration=3.0, frame_rate=5.0, state_rate=5.0, image_size=SIZE, seed=4))
+    finally:
+        timers.set_tracing(False)
+    recs = timers.snapshot()["spans"]
+    by_id = {r.span_id: r for r in recs}
+    frames = [r for r in recs if r.name == "frame"]
+    assert len(frames) == 15 and all(f.parent == 0 for f in frames)
+    for f in frames:
+        mine = {r.name: r for r in recs if r.request == f.request and r is not f}
+        assert {n for n in mine if not n.startswith("sync.")} == {
+            "frame.upload", "frame.dispatch", "frame.backbone", "frame.segment", "frame.head", "frame.insert"}
+        assert {"sync.normalize", "sync.grid_graph"} <= set(mine)  # the dispatch's blocking host-to-device copies
+        for r in mine.values():
+            parent = by_id[r.parent]
+            assert parent.request == f.request and f.start_ns <= r.start_ns <= r.end_ns <= f.end_ns
+        assert {mine[k].parent for k in ("frame.backbone", "frame.segment", "frame.head")} == {
+            mine["frame.dispatch"].span_id}
+    learner = {r.name for r in recs if r.request not in {f.request for f in frames}}
+    assert {"supervision", "estimator.reproject", "estimator.train_step", "sync.supervision_counts", "sync.loss",
+            "hot_swap"} <= learner
+    assert not any(n.startswith("frame") for n in learner)
 
 
 def test_weighted_scheduler_with_two_cameras(port_backbone):

@@ -88,6 +88,7 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention, kernel_tile, xla_attention, xla_attention_bf16
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
+from ..utils.timers import span
 from .quant import attention_scores_int8, int8_matmul_scaled, max_over, quantize_symmetric, quantize_with_scale
 from .simple_mlp import lecun_normal_
 
@@ -364,8 +365,9 @@ def _interpolate_pos_embed(pos: torch.Tensor, grid0: int, hp: int, wp: int) -> t
     if (hp, wp) == (grid0, grid0):
         return pos
     grid = pos.reshape(grid0, grid0, D).float()
-    Mh = torch.as_tensor(_torch_bicubic_matrix(grid0, hp), device=pos.device)
-    Mw = torch.as_tensor(_torch_bicubic_matrix(grid0, wp), device=pos.device)
+    with span("sync.pos_embed"):  # pageable host-to-device copies: each waits for the stream
+        Mh = torch.as_tensor(_torch_bicubic_matrix(grid0, hp), device=pos.device)
+        Mw = torch.as_tensor(_torch_bicubic_matrix(grid0, wp), device=pos.device)
     out = torch.einsum("oi,ijd->ojd", Mh, grid)
     out = torch.einsum("pj,ojd->opd", Mw, out)
     return out.reshape(hp * wp, D)

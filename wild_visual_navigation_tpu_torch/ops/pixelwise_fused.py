@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.timers import span
 from . import _cuda
 from .resize import _bilinear_matrix_np, _bilinear_pair_matrices_np
 
@@ -113,8 +114,9 @@ def fused_precompute(mlp, feat: torch.Tensor, out_h: int, out_w: int) -> FusedOp
     def t(a):
         return torch.as_tensor(a, device=dev)
 
-    Mw = t(_bilinear_matrix_np(out_w, Wp))  # (W, Wp)
-    Mq, Mx = (t(m) for m in _bilinear_pair_matrices_np(out_w, Wp))  # (W, Wp), (W, Wp - 1)
+    with span("sync.pixelwise_operands"):  # pageable host-to-device copies: each waits for the stream
+        Mw = t(_bilinear_matrix_np(out_w, Wp))  # (W, Wp)
+        Mq, Mx = (t(m) for m in _bilinear_pair_matrices_np(out_w, Wp))  # (W, Wp), (W, Wp - 1)
 
     # hw in bf16 products, as the reference computes it; the Gram-form
     # terms below stay fp32

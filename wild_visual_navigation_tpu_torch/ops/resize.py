@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.timers import span
+
 
 def _nearest_indices(out_size: int, in_size: int, device=None) -> torch.Tensor:
     # F.interpolate(mode="nearest") mapping: floor(i * in / out), computed
@@ -191,6 +193,7 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 def imagenet_normalize(img: torch.Tensor) -> torch.Tensor:
     """Channel-wise ImageNet normalisation of (..., 3, H, W) in [0, 1]."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=img.dtype, device=img.device).reshape(3, 1, 1)
-    std = torch.tensor(IMAGENET_STD, dtype=img.dtype, device=img.device).reshape(3, 1, 1)
+    with span("sync.normalize"):  # two pageable host-to-device copies: each waits for the stream
+        mean = torch.tensor(IMAGENET_MEAN, dtype=img.dtype, device=img.device).reshape(3, 1, 1)
+        std = torch.tensor(IMAGENET_STD, dtype=img.dtype, device=img.device).reshape(3, 1, 1)
     return (img - mean) / std

@@ -27,6 +27,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.timers import span
 from . import _cuda
 from .slic import _assign_plain, _init_index, pixel_features, rgb_to_lab, slic_geometry
 
@@ -165,7 +166,9 @@ def slic_batch_fused(imgs: torch.Tensor, num_components: int = 100, compactness:
     K = num_components
     ws, win2 = slic_geometry(K, compactness, H, W)
     feats = pixel_features(rgb_to_lab(imgs.float()), ws)  # (B, 5, HW)
-    centers = feats[:, :, _init_index(K, H, W).to(imgs.device)].transpose(1, 2)  # (B, K, 5)
+    with span("sync.slic_init"):  # a pageable host-to-device copy waits for the stream
+        init = _init_index(K, H, W).to(imgs.device)
+    centers = feats[:, :, init].transpose(1, 2)  # (B, K, 5)
     if interpret:
         for _ in range(iterations):
             _, centers = slic_step_plain(feats, centers, W, ws, win2)

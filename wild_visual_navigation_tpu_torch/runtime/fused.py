@@ -51,6 +51,7 @@ from ..ops.resize import imagenet_normalize, interpolate_bilinear, resize_image
 from ..ops.slic import slic_batch
 from ..parallel.mesh import dp_split
 from ..utils.confidence_generator import ConfidenceConfig, ConfidenceState, confidence_inference
+from ..utils.timers import span
 
 
 class FrameResult(NamedTuple):
@@ -97,7 +98,8 @@ def _segmentation(segmentation_type: str, H: int, W: int, S: int, slic_compactne
         return segment_ops.segment_grid(H, W, cell_size, device=x.device)[None].expand(x.shape[0], H, W)
 
     def graph(seg):
-        edges, edge_valid, centers, _ = (t.to(seg.device) for t in grid_graph)
+        with span("sync.grid_graph"):  # pageable host-to-device copies: each waits for the stream
+            edges, edge_valid, centers, _ = (t.to(seg.device) for t in grid_graph)
         return edges, edge_valid, centers
 
     return segments, graph
@@ -190,11 +192,15 @@ def build_fused_frame_fn(
         backbone, SLIC and the per-pixel scorer each run once on the batch."""
         if mesh is not None:
             return dp_split(mesh, lambda x: frames_batch(cg_state, x, head), imgs)
-        if imgs.dtype == torch.uint8:
-            imgs = imgs.float() / 255.0
-        x = resize_image(imgs, H, W)
-        feat = dense_features(vit, imagenet_normalize(x))  # (B, D, Hp, Wp)
-        return tail(cg_state, feat, _segments(x), head)
+        with span("frame.backbone"):
+            if imgs.dtype == torch.uint8:
+                imgs = imgs.float() / 255.0
+            x = resize_image(imgs, H, W)
+            feat = dense_features(vit, imagenet_normalize(x))  # (B, D, Hp, Wp)
+        with span("frame.segment"):
+            segs = _segments(x)
+        with span("frame.head"):
+            return tail(cg_state, feat, segs, head)
 
     def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
         return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))

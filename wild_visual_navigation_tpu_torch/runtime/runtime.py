@@ -49,6 +49,12 @@ holds the ViT module itself, computes with the new scales from its next
 call. Under a mesh the quantised backbone takes its scales over the whole
 global activation, as JAX's sharded program does (models/vit.py), so a
 static one is calibrated by every rank with the same frames.
+
+Tracing (utils/timers.py): each camera call, supervision callback and
+learner tick is a request; a frame's stages are spans under `frame`
+(`frame.upload`, `frame.dispatch`, `frame.insert`), the learner's are
+`supervision`, the estimator's spans and `hot_swap`. `counters()` reads
+the process's counters beside this runtime's own.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import launch_counts
 from ..cfg.experiment import ExperimentParams
 from ..cfg.node_params import FeatureExtractorNodeParams, LearningNodeParams
 from ..feature_extractor.feature_extractor import FeatureExtractor, static_feature_dim, static_num_segments
@@ -79,6 +86,8 @@ from ..traversability.mission_buffer import buffer_insert, buffer_insert_batch_i
 from ..traversability.nodes import MissionNode, SupervisionNode
 from ..utils.confidence_generator import confidence_load_state_dict
 from ..utils.devices import torch_device
+from ..utils.timers import new_request, span
+from ..utils.timers import snapshot as timers_snapshot
 from .fused import _score_rows
 from .scheduler import Scheduler
 from .status import StatusMonitor, SystemEvents
@@ -381,15 +390,16 @@ class WVNRuntime:
         estimator first (a collective when its tp > 1)."""
         if self._dist_trainer is not None:
             self._dist_trainer.sync_to_estimator()
-        with self.estimator.lock:
-            snap = self.estimator.state_dict_for_hot_swap()
-            cg = confidence_load_state_dict(self.estimator.confidence_state, snap["confidence_generator"])
-        head = copy.deepcopy(self._head_template)
-        head.load_state_dict(snap["params"], assign=True)
-        head.requires_grad_(False)
-        with self._mailbox_lock:
-            self._inference_head, self._inference_cg = head, cg
-            self.hot_swaps += 1
+        with span("hot_swap"):
+            with self.estimator.lock:
+                snap = self.estimator.state_dict_for_hot_swap()
+                cg = confidence_load_state_dict(self.estimator.confidence_state, snap["confidence_generator"])
+            head = copy.deepcopy(self._head_template)
+            head.load_state_dict(snap["params"], assign=True)
+            head.requires_grad_(False)
+            with self._mailbox_lock:
+                self._inference_head, self._inference_cg = head, cg
+                self.hot_swaps += 1
 
     def adopt_train_state(self, params: dict, adam: Optional[dict], cg_state, step: Optional[int] = None):
         """Hand a carried training state (utils/params.py::train_state_from_jax)
@@ -410,10 +420,11 @@ class WVNRuntime:
     def _to_device(self, img) -> torch.Tensor:
         """Upload a host frame as it is (uint8 stays uint8: the frame
         converts it on the device)."""
-        t = img if isinstance(img, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(img))
-        if t.dtype == torch.float64:
-            t = t.float()
-        return t.to(self._device)
+        with span("frame.upload"):
+            t = img if isinstance(img, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(img))
+            if t.dtype == torch.float64:
+                t = t.float()
+            return t.to(self._device)
 
     def _scale_K_cached(self, Ks: np.ndarray, orig_h: int, orig_w: int) -> torch.Tensor:
         """Intrinsics are static per mission: rescaled once per value and
@@ -490,9 +501,11 @@ class WVNRuntime:
             return None
         self.scheduler.step()
         self._last_image_ts[camera] = stamp
+        new_request()
         try:
-            return self._image_callback_body(img, stamp, camera, K, orig_h, orig_w, pose_base_in_world,
-                                             pose_cam_in_base, prediction_per_pixel)
+            with span("frame"):
+                return self._image_callback_body(img, stamp, camera, K, orig_h, orig_w, pose_base_in_world,
+                                                 pose_cam_in_base, prediction_per_pixel)
         except Exception as exc:
             self.events.record_error("image_callback_state", exc)
             if not self._swallow_errors:
@@ -514,10 +527,11 @@ class WVNRuntime:
         node = self._make_mission_node(stamp, camera, pose_base_in_world, pose_cam_in_base)
 
         if self._fused_frame is not None and prediction_per_pixel == self.fe_params.prediction_per_pixel:
-            fr = self._fused_frame(cg, x, head)
+            with span("frame.dispatch", cpu=True):
+                fr = self._fused_frame(cg, x, head)
             # graph gate, slot and in-place insert in one critical section:
             # the learning thread's flush and gather take the same lock
-            with self.estimator.lock:
+            with span("frame.insert"), self.estimator.lock:
                 slot = self.estimator.allocate_slot(node)
                 if slot is not None:
                     buffer_insert(self.estimator.buffer, slot, fr.features, fr.feat_valid, fr.segments, K_scaled,
@@ -562,9 +576,11 @@ class WVNRuntime:
             # mixing the single and batched paths for one camera must not
             # process a frame twice
             self._last_image_ts[cam] = float(stamps[i])
+        new_request()
         try:
-            return self._image_batch_callback_body(imgs, stamps, cameras, Ks, orig_h, orig_w, poses_base_in_world,
-                                                   poses_cam_in_base)
+            with span("frame"):
+                return self._image_batch_callback_body(imgs, stamps, cameras, Ks, orig_h, orig_w,
+                                                       poses_base_in_world, poses_cam_in_base)
         except Exception as exc:
             self.events.record_error("image_batch_callback_state", exc)
             if not self._swallow_errors:
@@ -581,10 +597,11 @@ class WVNRuntime:
         K_scaled = self._scale_K_cached(np.asarray(Ks), orig_h, orig_w)
         nodes = [self._make_mission_node(stamps[i], cameras[i], poses_base_in_world[i], poses_cam_in_base[i])
                  for i in range(B)]
-        fr = self._fused_frame.frames_batch(cg, x, head, mesh=self.mesh)
+        with span("frame.dispatch", cpu=True):
+            fr = self._fused_frame.frames_batch(cg, x, head, mesh=self.mesh)
         # slots are reserved on the host; gated and non-training cameras get
         # slot == capacity, a row the insert drops on the host
-        with self.estimator.lock:
+        with span("frame.insert"), self.estimator.lock:
             slots = np.full((B,), self.estimator.buffer.capacity, np.int64)
             for i, node in enumerate(nodes):
                 s = self.estimator.allocate_slot(node)
@@ -610,9 +627,11 @@ class WVNRuntime:
             self.events.record("robot_state_callback_canceled", "canceled due to rate")
             return False
         self._last_supervision_ts = stamp
+        new_request()
         try:
-            return self._robot_state_callback_body(stamp, pose_base_in_world, current_twist, desired_twist,
-                                                   pose_footprint_in_base)
+            with span("supervision"):
+                return self._robot_state_callback_body(stamp, pose_base_in_world, current_twist, desired_twist,
+                                                       pose_footprint_in_base)
         except Exception as exc:
             self.events.record_error("robot_state_callback_state", exc)
             if not self._swallow_errors:
@@ -664,6 +683,7 @@ class WVNRuntime:
         only at the logging cadence (`logging_thread_rate`). With a
         distributed trainer the step is its collective step; a pause binds
         there too (an operator pauses every process)."""
+        new_request()
         log_every = max(1, int(self.ln_params.learning_thread_rate / max(self.ln_params.logging_thread_rate, 1e-9)))
         trainer = self._dist_trainer
         # the cadence follows the counter that advances per tick: the
@@ -700,6 +720,16 @@ class WVNRuntime:
             self.hot_swap()
             self._last_swap_step = cur_step
         return st
+
+    def counters(self) -> dict:
+        """The process's counters (utils/timers.py: the journal's events,
+        frames inserted into or gated by the mission graph, estimator-lock
+        acquisitions and contended ones, supervision flushes, blocking
+        device-to-host reads by site) with this runtime's own: `hot_swaps`,
+        `estimator.step`, `buffer_fill` (mission nodes holding a buffer
+        slot) and `launches` (kernel launches by kernel)."""
+        return {**timers_snapshot()["counters"], "hot_swaps": self.hot_swaps, "estimator.step": self.estimator.step,
+                "buffer_fill": len(self.estimator._slot_to_node), "launches": launch_counts()}
 
     def _update_gridmap(self, trav, conf, K_scaled, pose_cam_in_world, pose_base_in_world):
         """Recentre the grid on the robot's xy, then fuse the frame's maps

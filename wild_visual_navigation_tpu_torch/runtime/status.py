@@ -1,6 +1,10 @@
 """Status monitoring + system-events journal.
 
-A copy of wild_visual_navigation_tpu/runtime/status.py (it imports no JAX).
+Port of wild_visual_navigation_tpu/runtime/status.py (it imports no JAX).
+The journal also feeds the port's counters (utils/timers.py): each event
+counts as `events.<name>`, a cancelled callback as
+`events.<name>.<reason>` (`events.image_callback_canceled.rate`,
+`.scheduler`).
 
 Equivalents of the reference feature-extractor node's status thread
 (wvn_feature_extractor_node.py:238-271) — a periodic table of input
@@ -19,6 +23,10 @@ import traceback
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
+from ..utils.timers import count
+
+_CANCELED = "canceled due to "
+
 
 class SystemEvents:
     """Per-callback event journal (reference `_system_events`). Each
@@ -33,6 +41,7 @@ class SystemEvents:
     def record(self, name: str, value: str = "message received"):
         with self._lock:
             self._events[name] = {"time": time.time(), "value": value}
+            count(f"events.{name}.{value[len(_CANCELED):]}" if value.startswith(_CANCELED) else f"events.{name}")
 
     def record_error(self, name: str, exc: BaseException):
         tb = "".join(traceback.format_exception(type(exc), exc, exc.__traceback__))

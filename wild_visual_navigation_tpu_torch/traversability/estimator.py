@@ -68,6 +68,7 @@ from ..utils.data import TravBatch, batch_from_arrays
 from ..utils.locks import TrackedRLock
 from ..utils.loss import AnomalyLossConfig, TraversabilityLossConfig, anomaly_loss, traversability_loss
 from ..utils.operation_modes import WVNMode
+from ..utils.timers import count, span
 from .graphs import BaseGraph, DistanceWindowGraph, MaxElementsGraph
 from .mission_buffer import MissionBuffer, buffer_init, buffer_insert
 from .nodes import MissionNode, SupervisionNode
@@ -240,6 +241,7 @@ class TraversabilityEstimator:
             if not self._pending_footprints:
                 return
             pending, self._pending_footprints = self._pending_footprints, []
+            count("supervision.flushes")
             for idx, footprint, trav, nodes in pending:
                 self._pending_supervision.append((nodes, self._reproject_update(idx, footprint, trav)))
         # bound the queue while learning is paused (nothing else resolves)
@@ -255,8 +257,10 @@ class TraversabilityEstimator:
                 return
             pending, self._pending_supervision = self._pending_supervision, []
         # the copy waits for the stream: outside the lock
-        all_counts = torch.stack([c for _, c in pending]).cpu().numpy()
+        with span("sync.supervision_counts"):
+            all_counts = torch.stack([c for _, c in pending]).cpu().numpy()
         with self._lock:
+            count("sync.supervision_counts")
             # only for nodes that still own their slot (allocate_slot may
             # have recycled one meanwhile; its supervision died with it)
             for (nodes, _), counts in zip(pending, all_counts):
@@ -273,30 +277,31 @@ class TraversabilityEstimator:
         dp rank of a mesh, whose rows are then gathered); only the rows of
         real slots are written back. Returns the per-row counts of valid
         segments, (B_max,) on the device."""
-        buf, dev = self._buffer, self._device
-        cap = buf.capacity
-        mine = idx
-        if self._dp > 1:
-            per = -(-len(idx) // self._dp)
-            mine = np.concatenate([idx, np.full(per * self._dp - len(idx), cap, idx.dtype)])
-            mine = mine[self._dp_rank * per:(self._dp_rank + 1) * per]
-        sel = torch.as_tensor(np.clip(mine, 0, cap - 1), dtype=torch.long, device=dev)
-        B = len(mine)
-        cam = Camera(K=buf.K[sel], height=self._H, width=self._W)
-        pts = torch.as_tensor(footprint, dtype=torch.float32, device=dev)[None].expand(B, -1, 3)
-        inside, _, _ = project_and_render(cam, buf.pose_cam_in_world[sel], pts)
-        vals = torch.where(inside, torch.tensor(trav, dtype=torch.float32, device=dev), torch.inf)
-        fused = torch.minimum(buf.supervision_mask[sel], vals)
-        sig, sv = segment_masked_mean(fused, torch.isfinite(fused), buf.seg[sel], self._S)
-        if self._dp > 1:
-            fused, sig, sv = (all_gather_rows(t, self._dp_group)[:len(idx)] for t in (fused, sig, sv))
-        rows = np.flatnonzero(idx < cap)  # padding rows are dropped here, on the host
-        r = torch.as_tensor(rows, device=dev)
-        s = torch.as_tensor(idx[rows], dtype=torch.long, device=dev)
-        buf.supervision_mask[s] = fused[r]
-        buf.signal[s] = sig[r]
-        buf.signal_valid[s] = sv[r]
-        return torch.sum(sv, dim=-1)
+        with span("estimator.reproject"):
+            buf, dev = self._buffer, self._device
+            cap = buf.capacity
+            mine = idx
+            if self._dp > 1:
+                per = -(-len(idx) // self._dp)
+                mine = np.concatenate([idx, np.full(per * self._dp - len(idx), cap, idx.dtype)])
+                mine = mine[self._dp_rank * per:(self._dp_rank + 1) * per]
+            sel = torch.as_tensor(np.clip(mine, 0, cap - 1), dtype=torch.long, device=dev)
+            B = len(mine)
+            cam = Camera(K=buf.K[sel], height=self._H, width=self._W)
+            pts = torch.as_tensor(footprint, dtype=torch.float32, device=dev)[None].expand(B, -1, 3)
+            inside, _, _ = project_and_render(cam, buf.pose_cam_in_world[sel], pts)
+            vals = torch.where(inside, torch.tensor(trav, dtype=torch.float32, device=dev), torch.inf)
+            fused = torch.minimum(buf.supervision_mask[sel], vals)
+            sig, sv = segment_masked_mean(fused, torch.isfinite(fused), buf.seg[sel], self._S)
+            if self._dp > 1:
+                fused, sig, sv = (all_gather_rows(t, self._dp_group)[:len(idx)] for t in (fused, sig, sv))
+            rows = np.flatnonzero(idx < cap)  # padding rows are dropped here, on the host
+            r = torch.as_tensor(rows, device=dev)
+            s = torch.as_tensor(idx[rows], dtype=torch.long, device=dev)
+            buf.supervision_mask[s] = fused[r]
+            buf.signal[s] = sig[r]
+            buf.signal_valid[s] = sv[r]
+            return torch.sum(sv, dim=-1)
 
     # ------------------------------------------------------- properties
     @property
@@ -385,11 +390,11 @@ class TraversabilityEstimator:
     def allocate_slot(self, node: MissionNode) -> Optional[int]:
         """Graph-gate the node and reserve a ring-buffer slot without
         writing the buffer."""
-        if self._pause_mission_graph:
-            return None
-        if not (self._mission_graph.add_node(node) and node.use_for_training):
-            return None
         with self._lock:
+            if self._pause_mission_graph or not (self._mission_graph.add_node(node) and node.use_for_training):
+                count("frames.gated.graph")
+                return None
+            count("frames.inserted")
             # queued footprint updates name slots by index: apply them
             # before a slot is recycled
             if self._slot_to_node.get(self._next_slot % self._buffer.capacity) is not None:
@@ -555,8 +560,9 @@ class TraversabilityEstimator:
 
     def _train_step(self, idx):
         """gather -> loss -> autograd -> Adam -> confidence state."""
-        loss, aux, self._cg_state = self.step_on_batch(self._model, self._optimizer, self._cg_state,
-                                                       self._batch(idx), self._dp_group)
+        with span("estimator.train_step"):
+            loss, aux, self._cg_state = self.step_on_batch(self._model, self._optimizer, self._cg_state,
+                                                           self._batch(idx), self._dp_group)
         return loss, aux
 
     def train(self, convert_losses: bool = True) -> dict:
@@ -580,6 +586,8 @@ class TraversabilityEstimator:
                 return_dict["loss_total"] = -1
                 return return_dict
             loss, aux = self._train_step(idx)
+            if convert_losses:
+                count("sync.loss")  # under the lock; the read below waits for the step
         self._step += 1
         if self._log_confidence_folder and self._step % self._log_every == 0:
             os.makedirs(self._log_confidence_folder, exist_ok=True)
@@ -587,9 +595,10 @@ class TraversabilityEstimator:
                      mean=self._cg_state.mean.cpu().numpy(), std=self._cg_state.std.cpu().numpy(),
                      var=self._cg_state.var.cpu().numpy(), loss=loss.cpu().numpy())
         if convert_losses:
-            self._loss = float(loss)
-            return_dict.update(loss_total=self._loss, loss_trav=float(aux["loss_trav"]),
-                               loss_reco=float(aux["loss_reco"]))
+            with span("sync.loss"):
+                self._loss = float(loss)
+                return_dict.update(loss_total=self._loss, loss_trav=float(aux["loss_trav"]),
+                                   loss_reco=float(aux["loss_reco"]))
         else:
             return_dict.update(loss_total=loss, loss_trav=aux["loss_trav"], loss_reco=aux["loss_reco"])
         return return_dict

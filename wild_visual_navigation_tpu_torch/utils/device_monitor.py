@@ -1,20 +1,16 @@
 """Device memory observability.
 
-Port of wild_visual_navigation_tpu/utils/device_monitor.py, the
-replacement for the reference's GPU-memory monitor suite: per-device
-allocated and peak memory from `torch.cuda.memory_stats`, the card's total
-from `torch.cuda.mem_get_info`, a decorator accumulating per-method deltas,
-and a system-level monitor that samples on demand and stores CSVs per
-mission. A CPU device has no such statistics and reads zeros, as the JAX
-package reads zeros from a backend without them.
+Port of wild_visual_navigation_tpu/utils/device_monitor.py's memory
+statistics: per-device allocated and peak memory from
+`torch.cuda.memory_stats` and the card's total from
+`torch.cuda.mem_get_info` (`tools/soak.py` gates on them). A CPU device
+has no such statistics and reads zeros, as the JAX package reads zeros
+from a backend without them. The reference's per-method and system-level
+monitors are not ported: the runtime's counters and spans
+(`utils/timers.py`, `WVNRuntime.counters()`) are the port's observability.
 """
 
 from __future__ import annotations
-
-import os
-import time
-from collections import defaultdict
-from functools import wraps
 
 import torch
 
@@ -41,84 +37,3 @@ def device_memory_stats(device=None) -> dict:
         "peak_bytes_reserved": stats.get("reserved_bytes.all.peak", 0),
     }
 
-
-def get_device_memory_usage_mb(device=None) -> float:
-    return device_memory_stats(device)["bytes_in_use"] / 2**20
-
-
-class DeviceMonitor:
-    """Context manager printing the device-memory delta of a block (the
-    reference's GpuMonitor context manager)."""
-
-    def __init__(self, name: str = "", verbose: bool = True, device=None):
-        self.name = name
-        self.verbose = verbose
-        self.device = device
-
-    def __enter__(self):
-        self._before = get_device_memory_usage_mb(self.device)
-        return self
-
-    def __exit__(self, *exc):
-        after = get_device_memory_usage_mb(self.device)
-        self.delta_mb = after - self._before
-        if self.verbose:
-            print(f"Memory {self.name}: {self.delta_mb:+.2f} MB (now {after:.1f} MB)")
-        return False
-
-
-def accumulate_memory(fn):
-    """Method decorator storing per-call (time, delta-MB) samples on the
-    instance, as the reference's accumulate_memory does."""
-
-    @wraps(fn)
-    def wrapper(self, *args, **kwargs):
-        before = get_device_memory_usage_mb()
-        t0 = time.perf_counter()
-        out = fn(self, *args, **kwargs)
-        dt = time.perf_counter() - t0
-        after = get_device_memory_usage_mb()
-        if not hasattr(self, "_memory_samples"):
-            self._memory_samples = defaultdict(list)
-        self._memory_samples[fn.__name__].append({"time_s": dt, "delta_mb": after - before, "total_mb": after})
-        return out
-
-    return wrapper
-
-
-class SystemLevelDeviceMonitor:
-    """Samples device memory for a set of tagged objects and dumps CSVs (the
-    reference's SystemLevelGpuMonitor)."""
-
-    def __init__(self, objects, names, enabled: bool = True, device=None):
-        self._objects = objects
-        self._names = names
-        self._enabled = enabled
-        self._device = device
-        self._samples = []
-
-    def update(self, step: int):
-        if not self._enabled:
-            return
-        s = device_memory_stats(self._device)
-        self._samples.append({"step": step, **s, "t": time.time()})
-
-    def store(self, folder: str):
-        os.makedirs(folder, exist_ok=True)
-        path = os.path.join(folder, "device_memory.csv")
-        with open(path, "w") as f:
-            f.write("step,t,bytes_in_use,peak_bytes_in_use,bytes_limit\n")
-            for s in self._samples:
-                f.write(f"{s['step']},{s['t']},{s['bytes_in_use']},{s['peak_bytes_in_use']},{s['bytes_limit']}\n")
-        # per-object accumulate_memory dumps
-        for obj, name in zip(self._objects, self._names):
-            samples = getattr(obj, "_memory_samples", None)
-            if not samples:
-                continue
-            p = os.path.join(folder, f"memory_{name}.csv")
-            with open(p, "w") as f:
-                f.write("method,time_s,delta_mb,total_mb\n")
-                for method, rows in samples.items():
-                    for r in rows:
-                        f.write(f"{method},{r['time_s']:.6f},{r['delta_mb']:.3f},{r['total_mb']:.3f}\n")
-        return path

@@ -1,7 +1,7 @@
 """TrackedRLock — re-entrant lock with explicit, fail-safe ownership.
 
-A copy of wild_visual_navigation_tpu/utils/locks.py (standard library
-only), kept in the port so that it never imports the JAX package.
+Port of wild_visual_navigation_tpu/utils/locks.py, kept in the port so
+that it never imports the JAX package.
 
 The online runtime's signal handler must decide whether the main
 thread is inside an estimator critical section (if it is, shutdown is
@@ -22,11 +22,22 @@ ordering chosen so every race window reads as "owned":
 
 Deferring when not strictly necessary only delays shutdown to the next
 callback epilogue; the reverse error corrupts the mission buffer.
+
+The port's copy also measures the lock: `acquire` tries without blocking
+first, and only an acquire that found the lock held by another thread
+waits, inside a `lock_wait` span (utils/timers.py), a child of whatever
+span the waiting thread is in. The counters `lock.acquired` and
+`lock.contended` count the outermost acquisitions (a re-entrant one is
+not counted) and those that waited; they are incremented while the lock
+is held, and summed over every TrackedRLock of the process (the
+estimator's lock is the port's only one, so one a runtime).
 """
 
 from __future__ import annotations
 
 import threading
+
+from .timers import count, span
 
 
 class TrackedRLock:
@@ -42,10 +53,18 @@ class TrackedRLock:
         # Mark intent BEFORE acquiring: a signal handler interrupting
         # between these two lines must defer (fail safe).
         self._tls.depth = getattr(self._tls, "depth", 0) + 1
-        ok = self._lock.acquire(blocking, timeout)
+        ok = self._lock.acquire(False)
+        if not ok and blocking:
+            with span("lock_wait"):
+                ok = self._lock.acquire(True, timeout)
+            if ok:
+                count("lock.contended")
         if not ok:
             self._tls.depth -= 1
-        return ok
+            return False
+        if self._tls.depth == 1:
+            count("lock.acquired")
+        return True
 
     def release(self) -> None:
         self._lock.release()

@@ -1,179 +1,175 @@
-"""Timing and tracing utilities.
+"""The port's tracing: spans and counters inside the program.
 
-Port of wild_visual_navigation_tpu/utils/timers.py, the replacement for the
-reference's `pytictac` usage, with the same surface:
+  * `span(name, cpu=False)`: a context manager around one stage of a request. Off by
+    default: it then checks one module-level flag and returns a shared
+    no-op context, entering nothing of torch.profiler and reading no clock.
+    On, it opens a `torch.profiler.record_function("wvn.<name>")` range, so
+    the stage sits in a profiler's trace on the device trace's clock, and
+    appends a `SpanRecord` to a bounded ring (the oldest dropped first);
+  * `new_request()`: called where a request enters the runtime (a camera
+    call, a supervision callback, a learner tick); the spans a thread opens
+    until its next request share the request's id;
+  * `count(name, n=1)`: integer counters, always on;
+  * `set_tracing(on)`, `snapshot()` (the ring's records and the counters)
+    and `reset()`.
 
-  * `Timer`: a context manager printing the elapsed time;
-  * `ClassContextTimer`: a context manager accumulating into an object;
-  * `@accumulate_time`: a method decorator storing per-call times on the
-    instance (`_timers`);
-  * `ClassTimer`: aggregates and formats those statistics; `.store(folder)`
-    writes them as CSV per mission, like the reference's timing dumps.
+Spans are on between `set_tracing(True)` and `set_tracing(False)`, and
+while a torch.profiler session records: each `new_request` looks at
+torch's own flag for that (`torch.autograd.profiler._is_profiler_enabled`,
+a module attribute that profiler sessions set and clear), so a profile of
+the runtime holds the program's stages without a call into this module,
+and pays their cost; after the session the spans stay on until the
+thread's next request. This second switch is for a profiler whose owner
+cannot call `set_tracing`; once every such owner calls it, it goes.
 
-CUDA launches return before the card finishes, so `accumulate_time(block=True)`
-synchronises the device of every CUDA tensor in the result before it reads
-the clock, where the JAX package calls `block_until_ready`. `profile_trace`
-records a torch.profiler trace of the host and the card and writes it as a
-Chrome trace into `log_dir`.
+A record's start and end are `time.time_ns()`, the clock of the profiler's
+events. A span opened with `cpu=True` (only `frame.dispatch`) also records
+the thread's CPU time inside it (`time.thread_time_ns()`), so its wall time
+minus its CPU time is the time the thread was runnable or blocked but not
+running; the others record -1. The thread's CPU clock is read nowhere else:
+on the H100 hosts it was measured on it ticks in 10 ms steps, and one read
+inside a frame took 0.14-0.2 ms. The ring, the counters and the flag are
+the process's: every runtime of a process shares them.
+
+`profile_trace` records a torch.profiler trace of every thread, the
+program's spans on, and writes it as a Chrome trace into `log_dir`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from collections import defaultdict
-from functools import wraps
+from collections import defaultdict, deque
+from typing import NamedTuple
 
-import numpy as np
-import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
 
-
-def _cuda_devices(out) -> set:
-    """The CUDA devices of the tensors in a result (nested tuples, lists and
-    dicts are searched)."""
-    if isinstance(out, torch.Tensor):
-        return {out.device} if out.is_cuda else set()
-    if isinstance(out, dict):
-        out = out.values()
-    elif not isinstance(out, (tuple, list)):
-        return set()
-    devs = set()
-    for o in out:
-        devs |= _cuda_devices(o)
-    return devs
+RING_CAPACITY = 16384  # records; a 10-s window at ~20 spans per 100-ms frame and tick fills an eighth of it
+PREFIX = "wvn."
 
 
-def block_until_ready(out):
-    """Wait for the card to finish the work that produces `out`; returns it."""
-    for dev in _cuda_devices(out):
-        torch.cuda.synchronize(dev)
-    return out
+class SpanRecord(NamedTuple):
+    name: str
+    request: int  # shared by the spans of one request (0: opened before any request on this thread)
+    span_id: int
+    parent: int  # span_id of the span it was opened in on this thread, 0 at the request's root
+    thread: int  # threading.get_native_id()
+    start_ns: int  # time.time_ns()
+    end_ns: int
+    cpu_ns: int  # the thread's CPU time between start and end; -1 unless the span was opened with cpu=True
 
 
-class Timer:
-    def __init__(self, name: str = "", verbose: bool = True):
-        self.name = name
-        self.verbose = verbose
-        self.elapsed = 0.0
+_forced = False  # set_tracing
+_on = False  # what span() checks: _forced, or a profiler session recording at the last new_request
+_ring: deque = deque(maxlen=RING_CAPACITY)
+_counts: defaultdict = defaultdict(int)
+_ids = itertools.count(1)
+_tls = threading.local()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "cpu", "rf", "span_id", "parent", "request", "stack", "thread", "t0", "c0")
+
+    def __init__(self, name: str, cpu: bool):
+        self.name, self.cpu = name, cpu
 
     def __enter__(self):
-        self._t0 = time.perf_counter()
+        stack = getattr(_tls, "stack", None)
+        if stack is None:
+            stack = _tls.stack = []
+            _tls.thread = threading.get_native_id()  # a system call: once per thread
+        self.stack, self.thread = stack, _tls.thread
+        self.parent = stack[-1].span_id if stack else 0
+        self.request = getattr(_tls, "request", 0)
+        self.span_id = next(_ids)
+        stack.append(self)
+        self.rf = record_function(PREFIX + self.name)
+        self.rf.__enter__()
+        self.c0 = time.thread_time_ns() if self.cpu else 0
+        self.t0 = time.time_ns()
         return self
 
     def __exit__(self, *exc):
-        self.elapsed = time.perf_counter() - self._t0
-        if self.verbose:
-            print(f"Time {self.name}: {self.elapsed * 1e3:.2f} ms")
+        t1 = time.time_ns()
+        cpu = time.thread_time_ns() - self.c0 if self.cpu else -1
+        self.rf.__exit__(*exc)
+        self.stack.pop()
+        _ring.append(SpanRecord(self.name, self.request, self.span_id, self.parent, self.thread, self.t0, t1, cpu))
         return False
 
 
-def accumulate_time(method=None, *, block: bool = False):
-    """Decorator: accumulate per-call wall time into `self._timers`."""
-
-    def deco(fn):
-        @wraps(fn)
-        def wrapper(self, *args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(self, *args, **kwargs)
-            if block:
-                block_until_ready(out)
-            dt = time.perf_counter() - t0
-            if not hasattr(self, "_timers"):
-                self._timers = defaultdict(list)
-            self._timers[fn.__name__].append(dt)
-            return out
-
-        return wrapper
-
-    if method is not None:
-        return deco(method)
-    return deco
+def span(name: str, cpu: bool = False):
+    """A span named `name` (recorded as "wvn.<name>") while tracing is on,
+    with the thread's CPU time inside it when `cpu`; a shared no-op context
+    otherwise."""
+    if not _on:
+        return _OFF
+    return _Span(name, cpu)
 
 
-class ClassTimer:
-    """Aggregate the `_timers` of several objects."""
-
-    def __init__(self, objects, names, enabled: bool = True):
-        self._objects = objects
-        self._names = names
-        self._enabled = enabled
-
-    def rows(self):
-        out = []
-        for obj, name in zip(self._objects, self._names):
-            for method, samples in sorted(getattr(obj, "_timers", {}).items()):
-                a = np.asarray(samples) * 1e3
-                out.append(
-                    {
-                        "object": name,
-                        "method": method,
-                        "calls": len(a),
-                        "mean_ms": float(a.mean()),
-                        "p50_ms": float(np.percentile(a, 50)),
-                        "p95_ms": float(np.percentile(a, 95)),
-                        "total_s": float(a.sum() / 1e3),
-                    }
-                )
-        return out
-
-    def __str__(self):
-        if not self._enabled:
-            return ""
-        lines = []
-        for r in self.rows():
-            lines.append(
-                f"{r['object']}.{r['method']}: n={r['calls']} mean={r['mean_ms']:.2f}ms "
-                f"p50={r['p50_ms']:.2f}ms p95={r['p95_ms']:.2f}ms total={r['total_s']:.2f}s"
-            )
-        return "\n".join(lines)
-
-    def store(self, folder: str, filename: str = "timings.csv"):
-        os.makedirs(folder, exist_ok=True)
-        rows = self.rows()
-        path = os.path.join(folder, filename)
-        with open(path, "w") as f:
-            f.write("object,method,calls,mean_ms,p50_ms,p95_ms,total_s\n")
-            for r in rows:
-                f.write(
-                    f"{r['object']},{r['method']},{r['calls']},{r['mean_ms']:.4f},"
-                    f"{r['p50_ms']:.4f},{r['p95_ms']:.4f},{r['total_s']:.4f}\n"
-                )
-        return path
+def new_request() -> None:
+    """A request enters the runtime on this thread: tracing follows
+    `set_tracing` or a recording profiler session from here, and the spans
+    this thread opens share a new request id."""
+    global _on
+    _on = _forced or getattr(_autograd_profiler, "_is_profiler_enabled", False)
+    if _on:
+        _tls.request = next(_ids)
 
 
-class ClassContextTimer:
-    """Context manager accumulating into an object's `_timers` under a
-    given name (the reference's ClassContextTimer around the train step)."""
+def count(name: str, n: int = 1) -> None:
+    """Add n to a counter. The update takes no lock of its own: a counter
+    is exact where one lock serialises its sites (the estimator's counters
+    under the estimator's lock, a journal's events under the journal's),
+    and approximate where threads under different locks count one name at
+    once (two runtimes in one process), since CPython does not promise
+    that `+=` on a dict item is atomic."""
+    _counts[name] += n
 
-    def __init__(self, parent_obj, block_name: str, parent_method_name: str = ""):
-        self._obj = parent_obj
-        self._name = block_name
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
+def set_tracing(on: bool) -> None:
+    """Turn the spans on or off for every thread, from the next span on."""
+    global _forced, _on
+    _forced = _on = bool(on)
 
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        if not hasattr(self._obj, "_timers"):
-            self._obj._timers = defaultdict(list)
-        self._obj._timers[self._name].append(dt)
-        return False
+
+def snapshot() -> dict:
+    """{"spans": the ring's SpanRecords, oldest first, "counters": {name: n}}."""
+    return {"spans": list(_ring), "counters": dict(_counts)}
+
+
+def reset() -> None:
+    """Empty the ring and zero the counters (the flag stays as it is)."""
+    _ring.clear()
+    _counts.clear()
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str = "traces", enabled: bool = True):
-    """torch.profiler over the block, the card's kernels included when a card
-    is present; the trace is written to `log_dir`/trace.json (open it in
-    Perfetto or chrome://tracing). Yields the profiler (None when disabled)."""
+    """torch.profiler over the block on every thread (the learning thread's
+    work included), the card's kernels included when a card is present, and
+    the program's spans on; the trace is written to `log_dir`/trace.json
+    (open it in Perfetto or chrome://tracing, where each stage is a "wvn."
+    range on its thread). Yields the profiler (None when disabled)."""
     if not enabled:
         yield None
         return
+    import torch
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    with profile(activities=activities) as prof:
-        yield prof
+    was = _forced
+    set_tracing(True)
+    try:
+        with profile(activities=activities, experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
+            yield prof
+    finally:
+        set_tracing(was)
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
