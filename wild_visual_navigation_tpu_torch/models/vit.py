@@ -88,7 +88,6 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention, kernel_tile, xla_attention, xla_attention_bf16
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
-from ..utils.timers import span
 from .quant import attention_scores_int8, int8_matmul_scaled, max_over, quantize_symmetric, quantize_with_scale
 from .simple_mlp import lecun_normal_
 
@@ -359,15 +358,29 @@ def _torch_bicubic_matrix(in_size: int, out_size: int, offset: float = 0.1) -> n
     return M
 
 
+_BICUBIC_MATRICES: dict = {}  # (device, in_size, out_size) -> (out, in) fp32
+
+
+def bicubic_matrix(in_size: int, out_size: int, device) -> torch.Tensor:
+    """`_torch_bicubic_matrix` as an fp32 tensor on `device`, built once per
+    (device, in_size, out_size) and kept there: on the card a host-to-device
+    copy waits for the stream, and a CUDA graph's capture takes none."""
+    key = (torch.device(device), in_size, out_size)
+    hit = _BICUBIC_MATRICES.get(key)
+    if hit is None:
+        hit = _BICUBIC_MATRICES.setdefault(key, torch.as_tensor(_torch_bicubic_matrix(in_size, out_size),
+                                                                device=key[0]))
+    return hit
+
+
 def _interpolate_pos_embed(pos: torch.Tensor, grid0: int, hp: int, wp: int) -> torch.Tensor:
     """Bicubic resize of the (grid0², D) patch position table to (hp·wp, D)."""
     D = pos.shape[-1]
     if (hp, wp) == (grid0, grid0):
         return pos
     grid = pos.reshape(grid0, grid0, D).float()
-    with span("sync.pos_embed"):  # pageable host-to-device copies: each waits for the stream
-        Mh = torch.as_tensor(_torch_bicubic_matrix(grid0, hp), device=pos.device)
-        Mw = torch.as_tensor(_torch_bicubic_matrix(grid0, wp), device=pos.device)
+    Mh = bicubic_matrix(grid0, hp, pos.device)
+    Mw = bicubic_matrix(grid0, wp, pos.device)
     out = torch.einsum("oi,ijd->ojd", Mh, grid)
     out = torch.einsum("pj,ojd->opd", Mw, out)
     return out.reshape(hp * wp, D)
@@ -392,6 +405,10 @@ class PatchEmbed(nn.Module):
         return nn.functional.linear(x, w, self.proj.bias)
 
 
+def _bump_after_load(vit, incompatible_keys) -> None:
+    vit.bump_generation()
+
+
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, attention_impl: str = "flash", dtype: torch.dtype = torch.bfloat16,
                  device=None, generator: torch.Generator | None = None, state_dict: dict | None = None,
@@ -399,10 +416,18 @@ class VisionTransformer(nn.Module):
         """Weights from `state_dict` where one is given (the layers are
         then built on the meta device, so no initialiser runs), else the
         seeded draw of reset_parameters. `quant`: one of QUANT_MODES;
-        `ln_dtype`: the blocks' LayerNorm output type."""
+        `ln_dtype`: the blocks' LayerNorm output type.
+
+        `generation` counts the changes that may put new tensors in the
+        layers (a reset or a load, which requantise a quantised layer's
+        weight; a calibration; a tensor-parallel cut), so that a CUDA graph
+        of the forward, which holds the tensors it was captured with, can
+        tell it is stale."""
         super().__init__()
         if quant not in QUANT_MODES:
             raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
+        self.generation = 0
+        self.register_load_state_dict_post_hook(_bump_after_load)
         self.cfg = cfg
         self.dtype = dtype
         self.quant = quant
@@ -442,6 +467,10 @@ class VisionTransformer(nn.Module):
         for m in self.modules():
             if isinstance(m, QuantLinear):
                 m.refresh_()
+        self.bump_generation()
+
+    def bump_generation(self) -> None:
+        self.generation += 1
 
     def forward(self, img: torch.Tensor) -> dict:
         """img: (B, 3, H, W) normalised -> {patch_tokens (B, hp·wp, D) fp32,
@@ -485,6 +514,8 @@ def calibrate_int8_static(vit: VisionTransformer, sample_batches) -> VisionTrans
         for m in layers:
             m.calibrating = False
             m.refresh_()
+        if isinstance(vit, VisionTransformer):  # it also takes a lone layer
+            vit.bump_generation()
     return vit
 
 
@@ -538,6 +569,7 @@ def shard_heads_(vit: VisionTransformer, group, rank: int, tp: int, spec: dict) 
             _keep(mlp.fc1, rows=cut)
             _keep(mlp.fc2, cols=cut, group=group)
             mlp.tp_group = group
+    vit.bump_generation()
     return vit
 
 
@@ -559,6 +591,7 @@ def share_scales_(vit: VisionTransformer, dp_group, mesh_group) -> VisionTransfo
                            (mlp.fc2, mesh_group if mlp.tp_group is not None else dp_group)):
             if isinstance(lin, QuantLinear):
                 lin.scale_group = group
+    vit.bump_generation()
     return vit
 
 

@@ -19,6 +19,7 @@ process that finds the hashed library there runs no nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -62,6 +63,7 @@ SIGNATURES = {
 _lib = None
 _lib_lock = threading.Lock()  # one build and one binding, whichever thread launches first
 _count_lock = threading.Lock()  # the wrappers' `launches` counters
+_recording = threading.local()  # `launches`: a capturing thread's record (recording_launches)
 build_seconds: float | None = None  # wall time of this process's nvcc call, if it made one
 builds = 0  # nvcc builds this process ran (a steady run makes none after its first launch)
 
@@ -172,11 +174,36 @@ def library() -> ctypes.CDLL:
 def count_launch(wrapper, variant: str | None = None) -> None:
     """Add one to `wrapper.launches` (and to `wrapper.variant_launches`
     [variant], for a wrapper that launches several instantiations); the
-    camera thread and the learning thread launch kernels at the same time."""
+    camera thread and the learning thread launch kernels at the same time.
+    Inside `recording_launches` the thread's launch is recorded instead."""
+    recorded = getattr(_recording, "launches", None)
+    if recorded is not None:
+        recorded[(wrapper, variant)] = recorded.get((wrapper, variant), 0) + 1
+    else:
+        count_recorded({(wrapper, variant): 1})
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """This thread's launches inside the block are recorded, not counted: a
+    CUDA graph's capture enqueues them and runs none. Yields the record,
+    {(wrapper, variant): launches}, for `count_recorded` at each replay.
+    Other threads count as usual."""
+    _recording.launches = recorded = {}
+    try:
+        yield recorded
+    finally:
+        _recording.launches = None
+
+
+def count_recorded(recorded: dict) -> None:
+    """Count the launches of a `recording_launches` record, {(wrapper,
+    variant): launches}: one replay of the captured graph runs each."""
     with _count_lock:
-        wrapper.launches += 1
-        if variant is not None:
-            wrapper.variant_launches[variant] = wrapper.variant_launches.get(variant, 0) + 1
+        for (wrapper, variant), n in recorded.items():
+            wrapper.launches += n
+            if variant is not None:
+                wrapper.variant_launches[variant] = wrapper.variant_launches.get(variant, 0) + n
 
 
 def set_launches(wrapper, n: int) -> None:

@@ -12,8 +12,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.timers import span
-
 
 def _nearest_indices(out_size: int, in_size: int, device=None) -> torch.Tensor:
     # F.interpolate(mode="nearest") mapping: floor(i * in / out), computed
@@ -191,9 +189,23 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+_IMAGENET_CONSTANTS: dict = {}  # (device, dtype) -> (mean, std), each (3, 1, 1)
+
+
+def imagenet_constants(device, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet mean and std as (3, 1, 1) tensors of `dtype` on
+    `device`, built once per (device, dtype) and kept there: on the card a
+    host-to-device copy waits for the stream, and a CUDA graph's capture
+    takes none."""
+    key = (torch.device(device), dtype)
+    hit = _IMAGENET_CONSTANTS.get(key)
+    if hit is None:
+        hit = _IMAGENET_CONSTANTS.setdefault(key, tuple(
+            torch.tensor(c, dtype=dtype, device=key[0]).reshape(3, 1, 1) for c in (IMAGENET_MEAN, IMAGENET_STD)))
+    return hit
+
+
 def imagenet_normalize(img: torch.Tensor) -> torch.Tensor:
     """Channel-wise ImageNet normalisation of (..., 3, H, W) in [0, 1]."""
-    with span("sync.normalize"):  # two pageable host-to-device copies: each waits for the stream
-        mean = torch.tensor(IMAGENET_MEAN, dtype=img.dtype, device=img.device).reshape(3, 1, 1)
-        std = torch.tensor(IMAGENET_STD, dtype=img.dtype, device=img.device).reshape(3, 1, 1)
+    mean, std = imagenet_constants(img.device, img.dtype)
     return (img - mean) / std

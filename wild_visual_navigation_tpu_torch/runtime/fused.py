@@ -23,6 +23,11 @@ segment over the frame's segment adjacency, whatever the prediction mode.
 Only a SimpleMLP reconstruction head goes through K2; the others score
 the upsampled features in row bands (`pixelwise_map_rows_chunked`).
 
+On the card the DINO frame's backbone stage (uint8 to float, resize,
+normalise, the ViT) replays as one CUDA graph per input shape
+(`BackboneGraphs`); the segmentation and the head run eagerly on the
+graph's outputs.
+
 Under a ("dp", "tp") mesh, `frames_batch(..., mesh=mesh)` splits the frames
 over dp (padding B up to a multiple of dp), runs each rank's share and
 gathers the results, so every rank holds all B; a tp-sharded ViT
@@ -37,6 +42,9 @@ that one module, never from one that training updates in place.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -44,14 +52,14 @@ import torch
 from ..models.registry import apply_model, model_needs_edges
 from ..models.stego_head import cosine_kmeans, kmeans_init_indices
 from ..models.vit import dense_features
-from ..ops import segment_ops
+from ..ops import _cuda, segment_ops
 from ..ops.pixelwise import pixelwise_map_rows_chunked, pixelwise_score
 from ..ops.pixelwise import supports_optimized as pixelwise_supports
 from ..ops.resize import imagenet_normalize, interpolate_bilinear, resize_image
 from ..ops.slic import slic_batch
 from ..parallel.mesh import dp_split
 from ..utils.confidence_generator import ConfidenceConfig, ConfidenceState, confidence_inference
-from ..utils.timers import span
+from ..utils.timers import count, span
 
 
 class FrameResult(NamedTuple):
@@ -105,6 +113,151 @@ def _segmentation(segmentation_type: str, H: int, W: int, S: int, slic_compactne
     return segments, graph
 
 
+class _Graph:
+    """One key's captured backbone stage, or the reason the key runs eagerly."""
+
+    __slots__ = ("reason", "graph", "static_in", "out", "launches", "lock", "done")
+
+    def __init__(self, reason=None, graph=None, static_in=None, out=None, launches=None):
+        self.reason, self.graph, self.static_in, self.out, self.launches = reason, graph, static_in, out, launches
+        self.lock = threading.Lock()
+        self.done = None if graph is None else torch.cuda.Event()  # recorded where the last holder's reads end
+
+
+def _split_reason(vit) -> str | None:
+    """Why this process cannot replay the ViT's forward alone: "tp" where
+    shard_heads_ split it, "mesh" where it reduces its activation scales or
+    counts its batch over a process group (share_scales_); else None."""
+    if any(blk.attn.tp_group is not None or blk.mlp.tp_group is not None for blk in vit.blocks):
+        return "tp"
+    if any(getattr(m, "scale_group", None) is not None or getattr(m, "batch_group", None) is not None
+           for m in vit.modules()):
+        return "mesh"
+    return None
+
+
+class BackboneGraphs:
+    """The DINO frame's backbone stage, `stage(imgs) -> (x, feat)`, as one
+    CUDA graph per key: (device, B, C, H0, W0, dtype, the ViT's quantisation
+    and generation).
+
+    `with graphs(imgs) as (x, feat):` a key's first call runs the stage on a
+    side stream, as its own result and as the warm-up that builds the
+    resident constants, then captures it (`capture_error_mode=
+    "thread_local"`, so a learner thread's work goes on meanwhile). Later
+    calls copy the frame into the graph's static input and replay on the
+    caller's stream, and hand out the graph's static outputs under the
+    key's lock: the next caller's copy-in waits for the block to end, on the
+    host and, through an event, on the device. A replay adds the kernel
+    launches its capture recorded to the wrappers' counters.
+
+    CPU input, a ViT split over tp or reducing over a mesh, and a key whose
+    capture raised (warned once) run the stage eagerly. Counters:
+    `frame.backbone.graph.captures`, `frame.backbone.graph.replays`,
+    `frame.backbone.graph.eager.<reason>` (`cpu`, `tp`, `mesh`, `capture`;
+    `mesh` also for a meshed `frames_batch`)."""
+
+    def __init__(self, vit, stage):
+        self.vit, self.stage = vit, stage
+        self.graphs: dict = {}  # key -> _Graph, of the ViT's current generation only
+        self._capture_lock = threading.Lock()
+        self._side: dict = {}  # device -> the capture's stream
+        self._warned = False
+
+    def key(self, imgs: torch.Tensor) -> tuple:
+        return (imgs.device, *imgs.shape, imgs.dtype, self.vit.quant, self.vit.generation)
+
+    @contextlib.contextmanager
+    def eager(self, imgs: torch.Tensor):
+        with span("frame.backbone"):
+            out = self.stage(imgs)
+        yield out
+
+    @contextlib.contextmanager
+    def __call__(self, imgs: torch.Tensor):
+        if imgs.device.type != "cuda":
+            count("frame.backbone.graph.eager.cpu")
+            with self.eager(imgs) as out:
+                yield out
+            return
+        key = self.key(imgs)
+        g = self.graphs.get(key)
+        if g is None:
+            with span("frame.backbone"):
+                g, out = self._capture(key, imgs)
+            if out is not None:  # this call ran the key's warm-up
+                yield out
+                return
+        if g.reason is not None:
+            count(f"frame.backbone.graph.eager.{g.reason}")
+            with self.eager(imgs) as out:
+                yield out
+            return
+        with g.lock:
+            stream = torch.cuda.current_stream(imgs.device)
+            with span("frame.backbone"):
+                stream.wait_event(g.done)
+                g.static_in.copy_(imgs)
+                g.graph.replay()
+                _cuda.count_recorded(g.launches)
+                count("frame.backbone.graph.replays")
+            try:
+                yield g.out
+            finally:
+                g.done.record(stream)
+
+    def _capture(self, key: tuple, imgs: torch.Tensor):
+        """(the key's _Graph, this call's result if it ran the warm-up, else
+        None); the graph is captured here unless another thread did."""
+        with self._capture_lock:
+            g = self.graphs.get(key)
+            if g is not None:
+                return g, None
+            # graphs of an older generation hold tensors the ViT no longer has
+            self.graphs = {k: v for k, v in self.graphs.items() if k[-1] == key[-1]}
+            reason, out = _split_reason(self.vit), None
+            if reason is None:
+                out, g = self._record(key, imgs)
+                reason = "capture" if g is None else None
+            if reason is None:
+                count("frame.backbone.graph.captures")
+            else:
+                g = _Graph(reason)
+            self.graphs[key] = g
+            return g, out
+
+    def _record(self, key: tuple, imgs: torch.Tensor):
+        """The stage on the side stream (raises where it raises), then its
+        capture from a static input: (the stage's result, the _Graph or None
+        where the capture raised)."""
+        cur = torch.cuda.current_stream(imgs.device)
+        side = self._side.get(imgs.device)
+        if side is None:
+            side = self._side[imgs.device] = torch.cuda.Stream(imgs.device)
+        side.wait_stream(cur)
+        try:
+            with torch.cuda.stream(side):
+                out = self.stage(imgs)
+                static_in = torch.empty_like(imgs)
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with _cuda.recording_launches() as launches:
+                        graph.capture_begin(capture_error_mode="thread_local")
+                        try:
+                            static_out = self.stage(static_in)
+                        finally:
+                            graph.capture_end()
+                except Exception as exc:  # noqa: BLE001 - the key runs eagerly instead
+                    if not self._warned:
+                        self._warned = True
+                        warnings.warn(f"the backbone stage at {key} could not be captured as a CUDA graph "
+                                      f"({exc!r}); it runs eagerly", stacklevel=4)
+                    return out, None
+        finally:
+            cur.wait_stream(side)
+        return out, _Graph(None, graph, static_in, static_out, launches)
+
+
 def build_fused_frame_fn(
     vit,
     mlp,
@@ -124,7 +277,10 @@ def build_fused_frame_fn(
     """Returns frame(cg_state, img, head=None) -> FrameResult, with
     frame.frames_batch(cg_state, imgs, head=None) -> FrameResult of
     stacked fields and frame.tail(cg_state, feat, segs, head=None), the
-    post-backbone stage. `head` scores in place of `mlp`.
+    post-backbone stage. `head` scores in place of `mlp`. The backbone
+    stage replays as a CUDA graph on the card (`BackboneGraphs`, as
+    `frames_batch.backbone`); `frames_batch.eager(cg_state, imgs,
+    head=None)` runs it eagerly, for comparison.
 
     img: (1, 3, H0, W0) in [0, 1], float or uint8. Output maps are
     (input_size, input_width or input_size). Square configs resize the
@@ -186,25 +342,41 @@ def build_fused_frame_fn(
         ]
         return FrameResult(*(torch.stack(field) for field in zip(*outs)))
 
+    def _backbone(imgs: torch.Tensor):
+        """(B, 3, H0, W0) -> the resized (B, 3, H, W) image the segmentation
+        takes and the (B, D, Hp, Wp) features."""
+        if imgs.dtype == torch.uint8:
+            imgs = imgs.float() / 255.0
+        x = resize_image(imgs, H, W)
+        return x, dense_features(vit, imagenet_normalize(x))
+
+    backbone = BackboneGraphs(vit, _backbone)
+
+    def _frames(cg_state, imgs, head, stage) -> FrameResult:
+        with stage(imgs) as (x, feat):
+            with span("frame.segment"):
+                segs = _segments(x)
+            with span("frame.head"):
+                return tail(cg_state, feat, segs, head)
+
     @torch.no_grad()
     def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None, mesh=None) -> FrameResult:
         """(B, 3, H0, W0) -> FrameResult with a leading batch axis; the
         backbone, SLIC and the per-pixel scorer each run once on the batch."""
         if mesh is not None:
-            return dp_split(mesh, lambda x: frames_batch(cg_state, x, head), imgs)
-        with span("frame.backbone"):
-            if imgs.dtype == torch.uint8:
-                imgs = imgs.float() / 255.0
-            x = resize_image(imgs, H, W)
-            feat = dense_features(vit, imagenet_normalize(x))  # (B, D, Hp, Wp)
-        with span("frame.segment"):
-            segs = _segments(x)
-        with span("frame.head"):
-            return tail(cg_state, feat, segs, head)
+            count("frame.backbone.graph.eager.mesh")
+            return dp_split(mesh, lambda x: _frames(cg_state, x, head, backbone.eager), imgs)
+        return _frames(cg_state, imgs, head, backbone)
+
+    @torch.no_grad()
+    def eager(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
+        return _frames(cg_state, imgs, head, backbone.eager)
 
     def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
         return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))
 
+    frames_batch.backbone = backbone
+    frames_batch.eager = eager
     frame.frames_batch = frames_batch
     frame.tail = tail
     return frame
