@@ -6,7 +6,9 @@ Run one cell once from the repository's root:
 
 Cells, configurations, traffic mixes and metrics are named in
 BENCHMARK.json and found here by name: `configs/<config>.json`,
-`traffic/<traffic>.json`, `metrics/<metric>.py` and `limits/<cell>.json`.
-Nothing here imports JAX or the JAX package; `reference.py` imports
-nothing of the port either.
+`traffic/<traffic>.json`, `metrics/<metric>.py` and `limits/<cell>.json`;
+a configuration names its pipeline (its weights, runtime build, plain
+reference and counts), `pipelines/<pipeline>.py`, "dino" by default.
+Nothing here imports JAX or the JAX package; `reference.py` and the
+pipelines' references import nothing of the port either.
 """

@@ -103,24 +103,25 @@ def _worst(into: dict, new: dict) -> None:
         into[k] = max(into.get(k, 0.0), v)
 
 
-def compare(rec, cfg: dict, vit_sd: dict, traffic, control: bool = False) -> tuple[dict, dict, dict]:
-    """(numbers, counts, control numbers) over the recorder's samples. The
-    control numbers put the reference in low precision in the program's
-    place (empty unless `control`)."""
+def compare(rec, cfg: dict, pipe, weights: dict, traffic, control: bool = False) -> tuple[dict, dict, dict]:
+    """(numbers, counts, control numbers) over the recorder's samples, the
+    frame's reference from the configuration's pipeline `pipe` with its
+    `weights`. The control numbers put the reference in low precision in
+    the program's place (empty unless `control`)."""
     hi, lo = ref.Prec(False), ref.Prec(True)
-    dev = next(iter(vit_sd.values())).device
+    dev = next(iter(weights["head"].values())).device
     nums, ctl = {}, {}
     for f in rec.frames:
         img = torch.as_tensor(traffic.event(f["event"]).images[f["camera"]], device=dev)
         head = {k: v.detach() for k, v in f["head"].state_dict().items()}
-        want = ref.frame(cfg, vit_sd, head, f["cg"][0], f["cg"][1], img, hi)
+        want = pipe.frame(cfg, weights, head, f["cg"][0], f["cg"][1], img, hi)
         _worst(nums, {**_frame_numbers(f, want), "swap_gap": _swap_gap(f)})
         if control:
-            low = ref.frame(cfg, vit_sd, head, f["cg"][0], f["cg"][1], img, lo)
+            low = pipe.frame(cfg, weights, head, f["cg"][0], f["cg"][1], img, lo)
             _worst(ctl, _frame_numbers({"trav": low["trav"].cpu().numpy(), "conf": low["conf"].cpu().numpy(),
                                         "row": low}, want))
         del want
-    S, H = cfg["segmentation"]["num_segments"], cfg["image_size"]
+    S, H = pipe.num_segments(cfg), cfg["image_size"]
     for fl in rec.flushes:
         r = fl["rows"]
         b = {k: v[torch.as_tensor(r, dtype=torch.long, device=v.device)] for k, v in fl["before"].items()}

@@ -1,6 +1,8 @@
-"""Operations and bytes of the kernels and of the model, from shapes alone,
-against NVIDIA's published H100 SXM peaks (dense, 700 W): a frozen copy of
-chip_smoke.py's `bound` and its per-kernel counts.
+"""Operations and bytes of the kernels, from shapes alone, against NVIDIA's
+published H100 SXM peaks (dense, 700 W): a frozen copy of chip_smoke.py's
+`bound` and its per-kernel counts. A configuration's pipeline
+(`pipelines/<name>.py`) gives the shapes its frame launches each kernel at
+(`kernel_shapes`) and the frame's model FLOPs (`frame_flops`).
 
 A bound is the larger of bytes / peak bandwidth and, over the kinds of
 operation a kernel runs, operations / that kind's peak. Inputs are read
@@ -18,12 +20,6 @@ PEAK_FLOPS = {"bf16_tensor": 989e12, "bf16x2": 133.8e12, "fp32": 67e12}
 def bound_s(nbytes: float, flops: dict) -> float:
     t_ops = max((n / PEAK_FLOPS[kind] for kind, n in flops.items()), default=0.0)
     return max(nbytes / PEAK_BYTES_PER_S, t_ops)
-
-
-def tokens(cfg: dict) -> int:
-    m = cfg["model"]
-    g = cfg["image_size"] // m["patch_size"]
-    return g * g + 1 + m.get("num_register_tokens", 0)
 
 
 def k1_bound_s(B: int, H: int, S: int, D: int) -> float:
@@ -58,28 +54,3 @@ def k4_bound_s(B: int, H: int, W: int, N: int = 64, E: int = 32) -> float:
     E vertices and B (H, W) byte masks out; the fill's 6 fp32 operations per
     edge and hull (the march depends on the data and is left out)."""
     return bound_s(B * N * 9 + B * E * 9 + B * H * W, {"fp32": B * (E + 1) * 6})
-
-
-def vit_flops(cfg: dict) -> float:
-    """One frame's ViT forward at its published widths: the patch
-    embedding, then per block qkv, QKᵀ, PV, proj and the MLP (2 per multiply-add)."""
-    m = cfg["model"]
-    N, D, p = tokens(cfg), m["embed_dim"], m["patch_size"]
-    hidden = int(D * m["mlp_ratio"])
-    n_patch = (cfg["image_size"] // p) ** 2
-    block = 2 * N * D * 3 * D + 2 * 2 * N * N * D + 2 * N * D * D + 2 * 2 * N * D * hidden
-    return 2 * n_patch * 3 * p * p * D + m["depth"] * block
-
-
-def head_flops(cfg: dict) -> float:
-    """The head scored at the configuration's resolution: every pixel, or every patch."""
-    D = cfg["model"]["embed_dim"]
-    sizes = [D, *cfg["head"]["hidden_sizes"][:-1], cfg["head"]["hidden_sizes"][-1] + D]
-    per_row = sum(2 * a * b for a, b in zip(sizes[:-1], sizes[1:]))
-    g = cfg["image_size"] // cfg["model"]["patch_size"]
-    rows = g * g if cfg["score_at_patch_res"] else cfg["image_size"] ** 2
-    return per_row * rows
-
-
-def frame_flops(cfg: dict) -> float:
-    return vit_flops(cfg) + head_flops(cfg)

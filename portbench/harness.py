@@ -1,5 +1,9 @@
 """One run of one cell: set-up, the measured window, the metrics, the check.
 
+The configuration's pipeline (`pipelines/<pipeline>.py`, "dino" where
+the configuration names none) makes the weights, the runtime, the plain
+reference's frame and the counts; the rest is shared by every pipeline.
+
 Set-up (timed as `setup_s`, from the process's start) makes the weights
 on the device from the seed, the traffic from the seed, the runtime, and
 runs the mix's pre-roll through the same calls the window makes, so every
@@ -24,12 +28,12 @@ import numpy as np
 import torch
 
 from . import check, reference as ref, trace as trace_mod
-from .system import Caller, Recorder, Timings, build_runtime
+from .system import Caller, Recorder, Timings
 from .traffic import Traffic
-from .weights import make_weights
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "wild_visual_navigation_tpu")
+PIPELINE_FUNCTIONS = ("make_weights", "build_runtime", "frame", "num_segments", "frame_flops", "kernel_shapes")
 
 
 @dataclass
@@ -41,6 +45,7 @@ class Ctx:
     timings: Timings
     trace: object  # trace.Trace or None
     setup_s: float
+    pipeline: object  # the configuration's pipeline module (load_pipeline)
 
 
 def load_metric(name: str, root: Path = HERE):
@@ -48,6 +53,24 @@ def load_metric(name: str, root: Path = HERE):
     spec = importlib.util.spec_from_file_location(f"portbench_metric_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def load_pipeline(cfg: dict, root: Path = HERE):
+    """The configuration's pipeline module, `pipelines/<cfg["pipeline"]>.py`
+    ("dino" where the key is absent); SystemExit, naming the file, where it
+    is missing or lacks a function of PIPELINE_FUNCTIONS."""
+    name = cfg.get("pipeline", "dino")
+    path = root / "pipelines" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"portbench: configuration {cfg.get('name')!r} names the pipeline {name!r}, "
+                         f"and there is no {path}")
+    spec = importlib.util.spec_from_file_location(f"portbench_pipeline_{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    missing = [f for f in PIPELINE_FUNCTIONS if not callable(getattr(mod, f, None))]
+    if missing:
+        raise SystemExit(f"portbench: the pipeline {path} lacks {', '.join(missing)}")
     return mod
 
 
@@ -91,14 +114,15 @@ def run(cfg: dict, mix: dict, limits: dict, e2e: list, per_layer: list, seed: in
     `e2e` and `per_layer` are BENCHMARK.json's metric entries for the cell."""
     device = torch.device(device)
     learner = bool(mix.get("learner", False))
+    pipe = load_pipeline(cfg)
     stamps = [("imports", time.perf_counter())]
-    vit_sd, head_sd = make_weights(cfg, seed, device)
+    weights = pipe.make_weights(cfg, seed, device)
     stamps.append(("weights", time.perf_counter()))
     n_events = int(mix.get("preroll_max_events", 400)) + int(seconds * float(mix.get("max_rate_hz", 12.0))) + 64
     traffic = Traffic(mix, cfg["image_size"], seed, n_events)
     stamps.append(("traffic", time.perf_counter()))
-    first = ({k: v.clone() for k, v in head_sd.items()}, ref.confidence_init(device))
-    rt = build_runtime(cfg, mix, vit_sd, head_sd, device, quant=cfg.get("control_quant") if control else None)
+    first = ({k: v.clone() for k, v in weights["head"].items()}, ref.confidence_init(device))
+    rt = pipe.build_runtime(cfg, mix, weights, device, quant=cfg.get("control_quant") if control else None)
     stamps.append(("runtime", time.perf_counter()))
     rec = Recorder()
     rec.install(rt, first)
@@ -133,7 +157,7 @@ def run(cfg: dict, mix: dict, limits: dict, e2e: list, per_layer: list, seed: in
 
     if timings.frame_at:
         _print_blocks(timings)
-    ctx = Ctx(cfg, mix, timings, tr, setup_s)
+    ctx = Ctx(cfg, mix, timings, tr, setup_s, pipe)
     metrics = {}
     for m in (per_layer if trace else e2e):
         value = load_metric(m["name"]).read(ctx)
@@ -148,7 +172,7 @@ def run(cfg: dict, mix: dict, limits: dict, e2e: list, per_layer: list, seed: in
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.no_grad():
-            nums, counts, ctl = check.compare(rec, cfg, vit_sd, traffic, control=control)
+            nums, counts, ctl = check.compare(rec, cfg, pipe, weights, traffic, control=control)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     active = {k: v for k, v in limits.items() if learner or k in check.FRAME_NUMBERS}

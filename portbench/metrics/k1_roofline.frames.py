@@ -1,6 +1,7 @@
 """k1_roofline.frames: K1's bound at the cell's attention shape (cameras,
-heads, tokens, head dim) over its mean device time, in %. K1 is
-flash_fwd_bf16_kernel / flash_fwd_f32_kernel (csrc/flash_attention.cuh)."""
+heads, tokens, head dim: the pipeline's `kernel_shapes`) over its mean
+device time, in %. K1 is flash_fwd_bf16_kernel / flash_fwd_f32_kernel
+(csrc/flash_attention.cuh)."""
 import importlib.util
 import pathlib
 
@@ -16,7 +17,7 @@ def read(ctx):
         return None
     from portbench import counts
 
-    m = ctx.cfg["model"]
-    b = counts.k1_bound_s(int(ctx.mix.get("cameras", 1)), m["num_heads"], counts.tokens(ctx.cfg),
-                          m["embed_dim"] // m["num_heads"])
-    return common.kernel_share(ctx.trace, KERNELS, b)
+    shape = ctx.pipeline.kernel_shapes(ctx.cfg, ctx.mix).get("k1")
+    if shape is None:
+        return None
+    return common.kernel_share(ctx.trace, KERNELS, counts.k1_bound_s(*shape))

@@ -1,6 +1,6 @@
 """k2_roofline.frames: K2's bound over its mean device time, in %. K2 is
 pixelwise_score_kernel (csrc/pixelwise_score.cu), one launch scoring every
-pixel of the frame's maps from patch rows."""
+pixel of the frame's maps from patch rows, at the pipeline's `kernel_shapes`."""
 import importlib.util
 import pathlib
 
@@ -16,8 +16,7 @@ def read(ctx):
         return None
     from portbench import counts
 
-    H = ctx.cfg["image_size"]
-    Hp = H // ctx.cfg["model"]["patch_size"]
-    hidden = ctx.cfg["head"]["hidden_sizes"]
-    b = counts.k2_bound_s(int(ctx.mix.get("cameras", 1)), Hp, H, H, K1=hidden[0], K=hidden[1])
-    return common.kernel_share(ctx.trace, KERNELS, b)
+    shape = ctx.pipeline.kernel_shapes(ctx.cfg, ctx.mix).get("k2")
+    if shape is None:
+        return None
+    return common.kernel_share(ctx.trace, KERNELS, counts.k2_bound_s(*shape))

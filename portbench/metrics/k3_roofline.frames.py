@@ -1,6 +1,6 @@
 """k3_roofline.frames: K3's bound (bytes: one SLIC step's features, centres,
 ids) over its mean device time, in %. K3 is slic_step_kernel
-(csrc/slic_step.cu), 11 launches per frame."""
+(csrc/slic_step.cu), 11 launches per frame, at the pipeline's `kernel_shapes`."""
 import importlib.util
 import pathlib
 
@@ -16,6 +16,7 @@ def read(ctx):
         return None
     from portbench import counts
 
-    H = ctx.cfg["image_size"]
-    b = counts.k3_bound_s(int(ctx.mix.get("cameras", 1)), H, H, ctx.cfg["segmentation"]["num_segments"])
-    return common.kernel_share(ctx.trace, KERNELS, b)
+    shape = ctx.pipeline.kernel_shapes(ctx.cfg, ctx.mix).get("k3")
+    if shape is None:
+        return None
+    return common.kernel_share(ctx.trace, KERNELS, counts.k3_bound_s(*shape))

@@ -1,6 +1,6 @@
 """k4_roofline.online: k4_roofline.learn in the online cell, where the flush
 runs on the learner's thread beside the camera's frames, so it moves
-frame_p50_ms there."""
+frames_per_s there."""
 import importlib.util
 import pathlib
 

@@ -1,8 +1,9 @@
-"""learn_tick_p95_ms.online: learn_tick_p95_ms as the online cell reads it, in
-a traced run, where the learner's thread contends with the camera's frames,
-so it moves frame_p50_ms there. Its runs spread too widely for an end-to-end
-bound. The ticks that the profiler's start and stop held up are left out (a
-tick that raised still counts as the whole window)."""
+"""learn_tick_p95_ms.online: the 95th percentile of a learner tick's latency in
+the online cell, from its due time, in a traced run, where the learner's
+thread contends with the camera's frames, so it moves frames_per_s there. Its
+runs spread too widely for an end-to-end bound. The ticks that the
+profiler's start and stop held up are left out (a tick that raised still
+counts as the whole window)."""
 import importlib.util
 import pathlib
 

@@ -1,7 +1,8 @@
 """mfu.frames: model FLOPs of the camera frames whose entry span lies in the
-traced window (the ViT forward at its published widths and tokens, plus the
-head at the configuration's scoring resolution: portbench/counts.py), over
-the window times the H100's 989 TFLOP/s bf16 peak, in %."""
+traced window (the configuration's pipeline's `frame_flops`: for `dino`, the
+ViT forward at its published widths and tokens, plus the head at the
+configuration's scoring resolution), over the window times the H100's 989
+TFLOP/s bf16 peak, in %."""
 import importlib.util
 import pathlib
 
@@ -20,4 +21,5 @@ def read(ctx):
     spans, per = common.frame_spans(tr, int(ctx.mix.get("cameras", 1)))
     if not spans:
         return None
-    return 100.0 * len(spans) * per * counts.frame_flops(ctx.cfg) / (tr.window_s * counts.PEAK_FLOPS["bf16_tensor"])
+    flops = ctx.pipeline.frame_flops(ctx.cfg)
+    return 100.0 * len(spans) * per * flops / (tr.window_s * counts.PEAK_FLOPS["bf16_tensor"])

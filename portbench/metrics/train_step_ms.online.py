@@ -1,5 +1,5 @@
 """train_step_ms.online: train_step_ms.learn in the online cell, where the learner's
-thread contends with the camera's frames, so it moves frame_p50_ms there."""
+thread contends with the camera's frames, so it moves frames_per_s there."""
 import importlib.util
 import pathlib
 

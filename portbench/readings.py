@@ -33,8 +33,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True)
     ap.add_argument("--runs", nargs="+", required=True, help="mode:seed,seed,... with mode sound, control or a fault")
     args = ap.parse_args(argv)
-    cell, _, _, cfg, mix, limits = load_cell(args.workload)
     set_caches()
+    cell, _, _, cfg, mix, limits = load_cell(args.workload)
 
     import torch
 

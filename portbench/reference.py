@@ -1,15 +1,15 @@
-"""The plain reference: what one camera frame, one supervision flush and one
-train step of the online loop compute, in plain PyTorch.
+"""The plain reference's library: what the pipelines share of one camera
+frame, and one supervision flush and one train step of the online loop, in
+plain PyTorch. A configuration's whole frame (its backbone, segments and
+scoring) is its pipeline's `frame` (`pipelines/<name>.py`), built from these.
 
 It imports torch and numpy only, nothing of the program. Its functions
 follow the port's plain versions (frozen copies of their arithmetic) and
-the published model descriptions: DINO / DINOv2 ViTs (pre-norm blocks,
-exact GELU, optional layer scale, bicubic position-table resize), SLIC as
-a dense k-means over (L, a, b, y·ws, x·ws) with SLIC's 2S window, the
-SimpleMLP head with its reconstruction confidence, the pinhole projection
-of the robot's footprint, its convex hull filled by half-plane tests, the
-pessimistic (minimum) fusion of supervision masks, the confidence-
-weighted traversability loss and Adam.
+the published descriptions: SLIC as a dense k-means over (L, a, b, y·ws,
+x·ws) with SLIC's 2S window, the SimpleMLP head with its reconstruction
+confidence, the pinhole projection of the robot's footprint, its convex
+hull filled by half-plane tests, the pessimistic (minimum) fusion of
+supervision masks, the confidence-weighted traversability loss and Adam.
 
 Precision: `Prec(low=False)` computes in float32 throughout (the caller
 turns TF32 off). `Prec(low=True)` is the control: each step one precision
@@ -121,71 +121,8 @@ def upsample(x: torch.Tensor, h: int, w: int, p: Prec) -> torch.Tensor:
 
 
 # -------------------------------------------------------------------- ViT
-def _bicubic_matrix(n_in: int, n_out: int, offset: float = 0.1) -> np.ndarray:
-    """torch's bicubic upsample (a = -0.75, scale (n_out + offset) / n_in,
-    clamped borders) as DINO's interpolate_pos_encoding calls it."""
-    a = -0.75
-
-    def cubic(x):
-        x = abs(x)
-        if x <= 1.0:
-            return (a + 2.0) * x**3 - (a + 3.0) * x**2 + 1.0
-        if x < 2.0:
-            return a * x**3 - 5.0 * a * x**2 + 8.0 * a * x - 4.0 * a
-        return 0.0
-
-    scale = n_in / (n_out + offset)
-    M = np.zeros((n_out, n_in), dtype=np.float32)
-    for i in range(n_out):
-        x = (i + 0.5) * scale - 0.5
-        i0 = int(np.floor(x))
-        for off in (-1, 0, 1, 2):
-            M[i, min(max(i0 + off, 0), n_in - 1)] += cubic(x - i0 - off)
-    return M
-
-
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.nn.functional.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(), eps)
-
-
-def vit_patch_tokens(sd: dict, m: dict, img: torch.Tensor, p: Prec) -> torch.Tensor:
-    """Normalised (B, 3, H, W) -> final-norm patch tokens (B, hp·wp, D)."""
-    B, _, H, W = img.shape
-    ps, D, heads = m["patch_size"], m["embed_dim"], m["num_heads"]
-    hp, wp = H // ps, W // ps
-    x = img[:, :, :hp * ps, :wp * ps].reshape(B, 3, hp, ps, wp, ps).permute(0, 2, 4, 1, 3, 5)
-    x = x.reshape(B, hp * wp, 3 * ps * ps)
-    w = sd["patch_embed.proj.weight"].reshape(D, -1)
-    x = p.a(p.a(x) @ p.a(w).T + sd["patch_embed.proj.bias"].float())
-    G = m["pos_grid_size"]
-    pos = sd["pos_embed"][0, 1:].float()
-    if (hp, wp) != (G, G):
-        grid = pos.reshape(G, G, D)
-        Mh = torch.as_tensor(_bicubic_matrix(G, hp), device=img.device)
-        Mw = torch.as_tensor(_bicubic_matrix(G, wp), device=img.device)
-        pos = torch.einsum("pj,ojd->opd", Mw, torch.einsum("oi,ijd->ojd", Mh, grid)).reshape(hp * wp, D)
-    x = x + pos[None]
-    tokens = [(sd["cls_token"] + sd["pos_embed"][:, :1]).float().expand(B, 1, D)]
-    R = m.get("num_register_tokens", 0)
-    if R:
-        tokens.append(sd["register_tokens"].float().expand(B, R, D))
-    x = torch.cat(tokens + [x], dim=1)
-    N, Dh, eps = x.shape[1], D // heads, m["ln_eps"]
-    for i in range(m["depth"]):
-        b = f"blocks.{i}."
-        h = layer_norm(x, sd[b + "norm1.weight"], sd[b + "norm1.bias"], eps)
-        qkv = p.vit_linear(h, sd[b + "attn.qkv.weight"], sd[b + "attn.qkv.bias"])
-        q, k, v = qkv.reshape(B, N, 3, heads, Dh).permute(2, 0, 3, 1, 4).unbind(0)
-        att = torch.softmax((q @ k.transpose(-1, -2)) * Dh**-0.5, dim=-1)
-        o = p.a(p.a(att) @ v).transpose(1, 2).reshape(B, N, D)
-        o = p.vit_linear(o, sd[b + "attn.proj.weight"], sd[b + "attn.proj.bias"])
-        x = p.a(x + (o * sd[b + "ls1.gamma"].float() if b + "ls1.gamma" in sd else o))
-        h = layer_norm(x, sd[b + "norm2.weight"], sd[b + "norm2.bias"], eps)
-        h = torch.nn.functional.gelu(p.vit_linear(h, sd[b + "mlp.fc1.weight"], sd[b + "mlp.fc1.bias"]))
-        h = p.vit_linear(h, sd[b + "mlp.fc2.weight"], sd[b + "mlp.fc2.bias"])
-        x = p.a(x + (h * sd[b + "ls2.gamma"].float() if b + "ls2.gamma" in sd else h))
-    x = layer_norm(x, sd["norm.weight"], sd["norm.bias"], eps)
-    return x[:, 1 + R:]
 
 
 # ------------------------------------------------------------------- SLIC
@@ -323,38 +260,6 @@ def score_rows(head: dict, rows: torch.Tensor, mean, std, std_factor: float, p: 
     out = head_forward(head, rows, p)
     reco = torch.mean((out[:, 1:] - rows.float()) ** 2, dim=-1)
     return out[:, 0], confidence_inference(mean, std, std_factor, reco)
-
-
-def frame(cfg: dict, sd: dict, head: dict, mean, std, img_u8: torch.Tensor, p: Prec) -> dict:
-    """One camera frame: (3, H0, W0) uint8 -> traversability and confidence
-    maps (H, W), the segment ids (H, W) and the pooled segment features
-    (S, D) with their validity, as the configuration computes them."""
-    H = cfg["image_size"]
-    x = resize_square(to_unit(img_u8), H)
-    tok = vit_patch_tokens(sd, cfg["model"], normalize(x)[None], p)[0]
-    ps = cfg["model"]["patch_size"]
-    Hp = Wp = H // ps
-    feat = tok.T.reshape(-1, Hp, Wp)
-    seg_cfg = cfg["segmentation"]
-    S = seg_cfg["num_segments"]
-    if seg_cfg["type"] == "slic":
-        seg = slic(x, S, seg_cfg["compactness"], seg_cfg["iterations"], p)
-    else:
-        seg = grid_segments(H, H, seg_cfg["cell_size"], x.device)
-    sf = cfg["confidence"]["std_factor"]
-    if cfg["score_at_patch_res"]:
-        ph = H // Hp
-        pooled, counts = pool_patches(feat, seg[ph // 2::ph, ph // 2::ph][:Hp, :Wp], S, p)
-        t, c = score_rows(head, feat.reshape(feat.shape[0], -1).T, mean, std, sf, p)
-        M = bilinear_matrix(H, Hp, x.device)
-        trav = (M @ t.reshape(Hp, Wp) @ M.T)
-        conf = (M @ c.reshape(Hp, Wp) @ M.T)
-    else:
-        pooled, counts = pool_upsampled(feat, seg, S, p)
-        dense = upsample(feat, H, H, p)
-        t, c = score_rows(head, dense.reshape(dense.shape[0], -1).T, mean, std, sf, p)
-        trav, conf = t.reshape(H, H), c.reshape(H, H)
-    return {"trav": trav, "conf": conf, "seg": seg, "features": pooled, "feat_valid": counts > 0}
 
 
 # ---------------------------------------------------------------- flush

@@ -4,7 +4,8 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the repository's root (or a checkout of it). The cell names a
-configuration (`portbench/configs/<config>.json`) and a traffic mix
+configuration (`portbench/configs/<config>.json`, which names its pipeline,
+`portbench/pipelines/<pipeline>.py`) and a traffic mix
 (`portbench/traffic/<traffic>.json`) in BENCHMARK.json; its correctness
 limits are `portbench/limits/<cell>.json`, its metrics the readers
 `portbench/metrics/<metric>.py`. The last line of standard output is one
@@ -46,14 +47,18 @@ def cell_spec(bench: dict, workload: str) -> tuple[dict, list, list]:
     return cells[workload], mine(bench["end_to_end"]), mine(bench["per_layer"])
 
 
-def load_cell(workload: str) -> tuple:
-    """(workload entry, end-to-end metrics, per-layer metrics, configuration, mix, limits) of a cell."""
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+def load_cell(workload: str, root: Path = ROOT) -> tuple:
+    """(workload entry, end-to-end metrics, per-layer metrics, configuration, mix, limits) of a cell.
+    Loads the configuration's pipeline, so that a missing module or function fails here, before any run."""
+    from portbench import harness
+
+    bench = json.loads((root / "BENCHMARK.json").read_text())
     cell, e2e, per_layer = cell_spec(bench, workload)
-    pb = ROOT / "portbench"
+    pb = root / "portbench"
     cfg = json.loads((pb / "configs" / f"{cell['config']}.json").read_text())
     mix = json.loads((pb / "traffic" / f"{cell['traffic']}.json").read_text())
     limits = json.loads((pb / "limits" / f"{cell['name']}.json").read_text())["limits"]
+    harness.load_pipeline(cfg, pb)
     return cell, e2e, per_layer, cfg, mix, limits
 
 
@@ -75,8 +80,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fault", default=None, help="plant a fault (portbench/faults.py) to read what the check sees")
     args = ap.parse_args(argv)
 
-    cell, e2e, per_layer, cfg, mix, limits = load_cell(args.workload)
     set_caches()
+    sys.path.insert(0, str(ROOT))
+    cell, e2e, per_layer, cfg, mix, limits = load_cell(args.workload)
 
     import torch
 
@@ -85,7 +91,6 @@ def main(argv=None) -> int:
               f"found {torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
     torch.set_num_threads(1)
-    sys.path.insert(0, str(ROOT))
     from portbench import faults, harness
 
     if args.fault:

@@ -1,7 +1,8 @@
-"""The system under test and the loops that drive it.
+"""The loops that drive the system under test.
 
-`build_runtime` makes the port's WVNRuntime from a configuration file,
-with the benchmark's seeded weights. The loops call its entries as a
+The system is the port's WVNRuntime that the cell's pipeline builds from
+a configuration file with the benchmark's seeded weights
+(`pipelines/<name>.py::build_runtime`). The loops call its entries as a
 robot would: `image_callback` or `image_batch_callback` for the cameras,
 then `InferenceResult.to_numpy` (the maps on the host, as the planner
 takes them), and the learner tick, `robot_state_callback` followed by
@@ -33,46 +34,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 from torch.profiler import record_function
-
-
-def build_runtime(cfg: dict, mix: dict, vit_sd: dict, head_sd: dict, device, quant=None):
-    """WVNRuntime at the configuration's settings, `quant` overriding its
-    backbone precision (the control's int8 path)."""
-    from wild_visual_navigation_tpu_torch.cfg.experiment import ExperimentParams
-    from wild_visual_navigation_tpu_torch.cfg.node_params import FeatureExtractorNodeParams, LearningNodeParams
-    from wild_visual_navigation_tpu_torch.runtime import WVNRuntime
-    from wild_visual_navigation_tpu_torch.utils.confidence_generator import confidence_init
-
-    m, seg, est, rates = cfg["model"], cfg["segmentation"], cfg["estimator"], dict(cfg["rates_hz"])
-    if mix.get("raise_rate_gates"):
-        rates["image_callback"] = rates["supervision_callback"] = 1e9
-    cams = {f"cam{c}": {"use_for_training": True, "scheduler_weight": 1} for c in range(int(mix.get("cameras", 1)))}
-    size = cfg["image_size"]
-    fe = FeatureExtractorNodeParams(
-        camera_topics=cams, network_input_image_height=size, network_input_image_width=size,
-        segmentation_type=seg["type"], feature_type=m["family"], dino_patch_size=m["patch_size"],
-        dino_backbone=m["backbone"], dino_quant=quant if quant is not None else cfg.get("quant"),
-        slic_num_components=seg["num_segments"], grid_cell_size=seg.get("cell_size", 32),
-        prediction_per_pixel=cfg["prediction_per_pixel"], image_callback_rate=rates["image_callback"])
-    ln = LearningNodeParams(
-        camera_topics=cams, network_input_image_height=size, network_input_image_width=size,
-        robot_length=cfg["robot"]["length"], robot_width=cfg["robot"]["width"], robot_height=cfg["robot"]["height"],
-        traversability_radius=est["traversability_radius"], image_graph_dist_thr=est["image_graph_dist_thr"],
-        supervision_graph_dist_thr=est["supervision_graph_dist_thr"],
-        confidence_std_factor=cfg["confidence"]["std_factor"],
-        min_samples_for_training=est["min_samples_for_training"],
-        supervision_callback_rate=rates["supervision_callback"], learning_thread_rate=rates["learning_thread"],
-        logging_thread_rate=rates["logging_thread"], load_save_checkpoint_rate=rates["load_save_checkpoint"])
-    exp = ExperimentParams()
-    exp.optimizer.lr = est["lr"]
-    exp.ablation_data_module.batch_size = est["batch_size"]
-    exp.loss.w_trav, exp.loss.w_reco = cfg["loss"]["w_trav"], cfg["loss"]["w_reco"]
-    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg["dtype"]]
-    rt = WVNRuntime(fe_params=fe, ln_params=ln, exp_params=exp, buffer_capacity=est["buffer_capacity"],
-                    reprojection_fanout=est["reprojection_fanout"], backbone_params=vit_sd,
-                    score_at_patch_res=cfg["score_at_patch_res"], device=device, backbone_dtype=dtype)
-    rt.adopt_train_state(head_sd, None, confidence_init(device))
-    return rt
 
 
 @dataclass
@@ -203,8 +164,8 @@ class Timings:
     lateness: list = field(default_factory=list)  # how late the open loop's camera started each frame
     trace_interval: tuple | None = None  # (start_ns, end_ns) of the traced part, time.time_ns()
     frame_due: list = field(default_factory=list)  # each frame_lat's due time, from the window's start (open loop)
-    tick_due: list = field(default_factory=list)  # each tick_lat's due time, from the window's start (open loop)
-    profiled: tuple | None = None  # (profiler started, its stop returned), from the window's start (open loop)
+    tick_due: list = field(default_factory=list)  # each tick_lat's due time (closed loop: start), from the window's start
+    profiled: tuple | None = None  # (profiler started, its stop returned), from the window's start
     host: list = field(default_factory=list)  # host_sample() at the window's start and every BLOCK_S of it
 
 
@@ -447,12 +408,14 @@ class Caller:
                 el = time.perf_counter() - t0
                 if tracing is None and el >= trace_after:
                     _sync()
+                    p0 = time.perf_counter() - t0
                     profiler.start()
                     tracing = time.time_ns()
                 elif tracing and el >= trace_after + trace_len:
                     _sync()
                     T.trace_interval = (tracing, time.time_ns())
                     profiler.stop()
+                    T.profiled = (p0, time.perf_counter() - t0)
                     tracing = False
             ts = time.perf_counter()
             T.frames_attempted += self.traffic.cameras
@@ -468,6 +431,7 @@ class Caller:
                 try:
                     self._tick(base + i, tick_samples.take(ts - t0))
                     T.tick_lat.append(time.perf_counter() - ts)
+                    T.tick_due.append(ts - t0)
                 except Exception:
                     T.ticks_failed += 1
                     print(traceback.format_exc(), file=sys.stderr)
@@ -478,5 +442,6 @@ class Caller:
             _sync()
             T.trace_interval = (tracing, time.time_ns())
             profiler.stop()
+            T.profiled = (p0, time.perf_counter() - t0)
         self.next_event = base + i
         return T

@@ -9,7 +9,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from portbench import counts  # noqa: E402
+from portbench import counts, harness  # noqa: E402
+
+DINO = harness.load_pipeline({"pipeline": "dino"})
 
 
 def cfg(name):
@@ -17,8 +19,8 @@ def cfg(name):
 
 
 def test_tokens():
-    assert counts.tokens(cfg("dino_vits8_224")) == 28 * 28 + 1 == 785
-    assert counts.tokens(cfg("dinov2_vitb14_644_4cam")) == 46 * 46 + 1 == 2117
+    assert DINO.tokens(cfg("dino_vits8_224")) == 28 * 28 + 1 == 785
+    assert DINO.tokens(cfg("dinov2_vitb14_644_4cam")) == 46 * 46 + 1 == 2117
 
 
 def test_k1_bound_at_vit_s8():
@@ -42,12 +44,12 @@ def test_k2_k3_k4_bounds_at_224():
 def test_frame_flops():
     # ViT-S/8 at 224: per block 2*785*384*1152 + 4*785^2*384 + 2*785*384^2 + 4*785*384*1536 = 3,724,592,640
     # (x 12), patch embedding 2*784*192*384 = 115,605,504
-    assert counts.vit_flops(cfg("dino_vits8_224")) == 12 * 3_724_592_640 + 115_605_504
+    assert DINO.vit_flops(cfg("dino_vits8_224")) == 12 * 3_724_592_640 + 115_605_504
     # the head at every pixel: 2*(384*256 + 256*32 + 32*385) = 237,632 per pixel
-    assert counts.head_flops(cfg("dino_vits8_224")) == 237_632 * 224 * 224
+    assert DINO.head_flops(cfg("dino_vits8_224")) == 237_632 * 224 * 224
     # ViT-B/14 at 644: per block 24*2117*768^2 + 4*2117^2*768; the head at 46 x 46 patches,
     # 2*(768*256 + 256*32 + 32*769) = 458,816 per patch
     c5 = cfg("dinov2_vitb14_644_4cam")
     block = 24 * 2117 * 768**2 + 4 * 2117**2 * 768
-    assert counts.vit_flops(c5) == 12 * block + 2 * 2116 * 588 * 768
-    assert counts.head_flops(c5) == 458_816 * 2116
+    assert DINO.vit_flops(c5) == 12 * block + 2 * 2116 * 588 * 768
+    assert DINO.head_flops(c5) == 458_816 * 2116

@@ -12,8 +12,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from portbench import reference as ref  # noqa: E402
-from portbench.weights import make_weights  # noqa: E402
+from portbench import harness, reference as ref  # noqa: E402
 from wild_visual_navigation_tpu_torch.models.vit import make_vit  # noqa: E402
 from wild_visual_navigation_tpu_torch.ops import segment_ops  # noqa: E402
 from wild_visual_navigation_tpu_torch.ops.projection import Camera  # noqa: E402
@@ -22,6 +21,7 @@ from wild_visual_navigation_tpu_torch.ops.slic import _slic_whole  # noqa: E402
 
 HI = ref.Prec(False)
 DATA = Path(__file__).resolve().parent / "data"
+DINO = harness.load_pipeline({"pipeline": "dino"})
 
 
 @pytest.fixture(autouse=True)
@@ -39,7 +39,7 @@ def tiny(name):
 @pytest.mark.parametrize("name", ["tiny_dino", "tiny_dinov2_4cam"])
 def test_vit_matches_the_port(name):
     cfg = tiny(name)
-    sd, _ = make_weights(cfg, 11, "cpu")
+    sd = DINO.make_weights(cfg, 11, "cpu")["backbone"]
     m = cfg["model"]
     vit = make_vit(m["family"], m["backbone"], m["patch_size"], attention_impl="xla", dtype=torch.float32,
                    device="cpu", state_dict=sd)
@@ -47,7 +47,7 @@ def test_vit_matches_the_port(name):
     x = ref.normalize(torch.rand(1, 3, size, size, generator=torch.Generator().manual_seed(3)))
     with torch.no_grad():
         want = vit(x)["patch_tokens"]
-        got = ref.vit_patch_tokens(sd, m, x, HI)
+        got = DINO.vit_patch_tokens(sd, m, x, HI)
     assert float((got - want).abs().max()) < 1e-4 * float(want.abs().max())
 
 

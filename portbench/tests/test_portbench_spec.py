@@ -63,7 +63,7 @@ def test_cell_spec_picks_metrics_by_workloads():
 
 
 @pytest.mark.parametrize("name,base", [("frame_p95_ms.online", "frame_p95_ms"),
-                                       ("learn_tick_p95_ms.online", "learn_tick_p95_ms"),
+                                       ("learn_tick_p95_ms.online", "learn_tick_p95_ms.batch"),
                                        ("flush_ms.online", "flush_ms.learn"),
                                        ("train_step_ms.online", "train_step_ms.learn"),
                                        ("k4_roofline.online", "k4_roofline.learn")])
@@ -96,3 +96,18 @@ def test_online_tails_leave_out_what_the_profiler_held_up():
     timings = SimpleNamespace(frame_lat=lat, frame_due=due, frames_failed=0, window_s=1.0, profiled=(0.15, 0.35))
     ctx = SimpleNamespace(timings=timings, mix={"period_s": 0.1})
     assert harness.load_metric("frame_p95_ms.online").read(ctx) < 50.0 < harness.load_metric("frame_p95_ms").read(ctx)
+    assert harness.load_metric("frame_p50_ms.online").read(ctx) == pytest.approx(25.0)  # median of 0.02, 0.03, 0.02, 0.04 s
+    timings.profiled = None
+    assert harness.load_metric("frame_p50_ms.online").read(ctx) == pytest.approx(95.0)  # median of all eight
+
+
+def test_batch_tick_tail_leaves_out_the_profiled_ticks():
+    """In a closed loop the ticks that started while the profiler ran are
+    not read; those before its start and after its stop are."""
+    lat = [0.014, 0.015, 0.090, 0.080, 0.016, 0.013]
+    due = [0.0, 0.5, 1.0, 1.5, 2.0, 2.5]  # profiled 0.9-1.8 s
+    timings = SimpleNamespace(tick_lat=lat, tick_due=due, ticks_failed=0, window_s=3.0, profiled=(0.9, 1.8))
+    ctx = SimpleNamespace(timings=timings, mix={"period_s": 0.1})
+    assert harness.load_metric("learn_tick_p95_ms.batch").read(ctx) < 20.0
+    timings.profiled = None
+    assert harness.load_metric("learn_tick_p95_ms.batch").read(ctx) > 80.0

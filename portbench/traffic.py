@@ -125,14 +125,16 @@ class Traffic:
         self.K = intrinsics(size)
         self.Ks = np.stack([self.K] * self.cameras)
         self.n = n_events
-        # the track: substeps of a quarter period, the speed set by the bands
+        # the track: substeps of a quarter period, the speed set by the bands (a mix without bands skips
+        # in_obstacle, which costs microseconds a call: a closed loop's budget is tens of thousands of events)
         sub = self.period / 4
+        bands = self.world.every > 0
         xs = np.zeros(n_events)
         x = 0.0
         for i in range(n_events):
             xs[i] = x
             for _ in range(4):
-                x += (GRIND if self.world.in_obstacle(x) else SPEED) * sub
+                x += (GRIND if bands and self.world.in_obstacle(x) else SPEED) * sub
         self.xs = xs
         self.noise = rng.randn(n_events, 6) * TWIST_NOISE
         if mix.get("frames", "render") == "pool":
