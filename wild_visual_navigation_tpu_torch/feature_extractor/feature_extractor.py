@@ -73,6 +73,9 @@ class FeatureExtractor:
         self.device = torch.device(device)
 
         if feature_type == "stego":
+            if kwargs.get("quant") is not None:
+                # the STEGO ViT has no quantised path: refuse in place of running bf16 under an int8 name
+                raise ValueError(f"feature_type [stego] has no quantised backbone (got quant [{kwargs['quant']}])")
             self._extractor = StegoInterface(
                 seed=seed,
                 input_size=input_size,

@@ -23,10 +23,10 @@ segment over the frame's segment adjacency, whatever the prediction mode.
 Only a SimpleMLP reconstruction head goes through K2; the others score
 the upsampled features in row bands (`pixelwise_map_rows_chunked`).
 
-On the card the DINO frame's backbone stage (uint8 to float, resize,
-normalise, the ViT) replays as one CUDA graph per input shape
-(`BackboneGraphs`); the segmentation and the head run eagerly on the
-graph's outputs.
+On the card the DINO and STEGO frames' backbone stage (uint8 to float,
+resize, normalise, the ViT; for STEGO also the code head) replays as one
+CUDA graph per input shape (`BackboneGraphs`); the segmentation and the
+head run eagerly on the graph's outputs.
 
 Under a ("dp", "tp") mesh, `frames_batch(..., mesh=mesh)` splits the frames
 over dp (padding B up to a multiple of dp), runs each rank's share and
@@ -60,6 +60,8 @@ from ..ops.slic import slic_batch
 from ..parallel.mesh import dp_split
 from ..utils.confidence_generator import ConfidenceConfig, ConfidenceState, confidence_inference
 from ..utils.timers import count, span
+
+KMEANS_ITERATIONS = 10  # the STEGO frame's Lloyd steps (models/stego_head.py::cosine_kmeans' default)
 
 
 class FrameResult(NamedTuple):
@@ -137,11 +139,13 @@ def _split_reason(vit) -> str | None:
 
 
 class BackboneGraphs:
-    """The DINO frame's backbone stage, `stage(imgs) -> (x, feat)`, as one
-    CUDA graph per key: (device, B, C, H0, W0, dtype, the ViT's quantisation
-    and generation).
+    """A frame's backbone stage, `stage(imgs)` (the DINO frame's `(x, feat)`,
+    the STEGO frame's codes), as one CUDA graph per key: (device, B, C, H0,
+    W0, dtype, the ViT's quantisation and generation). What the stage runs
+    after the ViT is frozen (the STEGO code head), so the key holds the
+    ViT's state alone.
 
-    `with graphs(imgs) as (x, feat):` a key's first call runs the stage on a
+    `with graphs(imgs) as out:` a key's first call runs the stage on a
     side stream, as its own result and as the warm-up that builds the
     resident constants, then captures it (`capture_error_mode=
     "thread_local"`, so a learner thread's work goes on meanwhile). Later
@@ -398,12 +402,21 @@ def build_fused_stego_frame_fn(
     frame.tail(cg_state, codes, head=None) for (B, N, 90) codes.
 
     `stego` is a feature_extractor/stego.py::StegoInterface. Segments are
-    the per-image k-means clusters (S = stego.n_image_clusters), features
-    the 90-d code pooled per cluster at patch resolution. The JAX package
-    seeds k-means with the same key on every frame; the port draws the
-    initial indices once, here, from a torch.Generator seeded 0 (or takes
-    `init_idx`, (S,)), and every image of every frame starts from them. Rectangular
-    configs must be patch-aligned."""
+    the per-image k-means clusters (S = stego.n_image_clusters,
+    KMEANS_ITERATIONS Lloyd steps), features the 90-d code pooled per
+    cluster at patch resolution. The JAX package seeds k-means with the
+    same key on every frame; the port draws the initial indices once, here,
+    from a torch.Generator seeded 0 (or takes `init_idx`, (S,)), and every
+    image of every frame starts from them. Rectangular configs must be
+    patch-aligned.
+
+    On the card the backbone stage (uint8 to float, resize, normalise, the
+    ViT, the code head) replays as a CUDA graph (`BackboneGraphs`, as
+    `frames_batch.backbone`; `frames_batch.eager` runs it eagerly). Spans:
+    `frame.backbone`, then in the tail `frame.segment` (k-means and the
+    labels' nearest upsample) and `frame.head` (K2, pooling, adjacency and
+    centres); counters `frame.segment.kmeans.images` and
+    `frame.segment.kmeans.steps` (images x Lloyd steps)."""
     H = input_size
     W = input_width or input_size
     ps = stego.vit.cfg.patch_size
@@ -429,49 +442,70 @@ def build_fused_stego_frame_fn(
         mlp = default_mlp if head is None else head
         B = codes.shape[0]
         idx, iy, ix = constants(codes.device)
-        labels, _ = cosine_kmeans(codes, idx)
-        seg_p = labels.reshape(B, hp, wp)
-        # the integer rule (y · hp) // H, the map upsampled_adjacency_and_centers assumes
-        segs = seg_p[:, iy][:, :, ix]
-        code_hw = codes.reshape(B, hp, wp, -1).permute(0, 3, 1, 2)
-        trav_b = conf_b = None
-        if prediction_per_pixel and pixelwise_supports(mlp):
-            trav_b, conf_b = pixelwise_score(mlp, code_hw, H, W, cg_cfg, cg_state)  # one K2 launch
-        outs = []
-        for b in range(B):
-            pooled, counts = segment_ops.segment_mean_pool(code_hw[b], seg_p[b], S)
-            edges, edge_valid, centers, _ = segment_ops.upsampled_adjacency_and_centers(seg_p[b], S, H, W,
-                                                                                         max_edges=max_edges)
-            if model_needs_edges(mlp):
-                # graph heads: per-segment scoring over the cluster adjacency
-                t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, edges=edges, edge_valid=edge_valid)
-                sid = segs[b].long().clamp(0, S - 1)
-                trav, conf = t_s[sid], c_s[sid]
-            elif trav_b is not None:
-                trav, conf = trav_b[b], conf_b[b]
-            elif prediction_per_pixel:
-                trav, conf = pixelwise_map_rows_chunked(lambda rows: _score_rows(mlp, cg_cfg, cg_state, rows),
-                                                        code_hw[b : b + 1], H, W)
-            else:
-                t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled)
-                sid = segs[b].long().clamp(0, S - 1)
-                trav, conf = t_s[sid], c_s[sid]
-            outs.append(FrameResult(trav, conf, pooled, counts > 0, segs[b], edges, edge_valid, centers))
-        return FrameResult(*(torch.stack(field) for field in zip(*outs)))
+        with span("frame.segment"):
+            labels, _ = cosine_kmeans(codes, idx, KMEANS_ITERATIONS)
+            count("frame.segment.kmeans.images", B)
+            count("frame.segment.kmeans.steps", B * KMEANS_ITERATIONS)
+            seg_p = labels.reshape(B, hp, wp)
+            # the integer rule (y · hp) // H, the map upsampled_adjacency_and_centers assumes
+            segs = seg_p[:, iy][:, :, ix]
+        with span("frame.head"):
+            code_hw = codes.reshape(B, hp, wp, -1).permute(0, 3, 1, 2)
+            trav_b = conf_b = None
+            if prediction_per_pixel and pixelwise_supports(mlp):
+                trav_b, conf_b = pixelwise_score(mlp, code_hw, H, W, cg_cfg, cg_state)  # one K2 launch
+            outs = []
+            for b in range(B):
+                pooled, counts = segment_ops.segment_mean_pool(code_hw[b], seg_p[b], S)
+                edges, edge_valid, centers, _ = segment_ops.upsampled_adjacency_and_centers(seg_p[b], S, H, W,
+                                                                                             max_edges=max_edges)
+                if model_needs_edges(mlp):
+                    # graph heads: per-segment scoring over the cluster adjacency
+                    t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, edges=edges, edge_valid=edge_valid)
+                    sid = segs[b].long().clamp(0, S - 1)
+                    trav, conf = t_s[sid], c_s[sid]
+                elif trav_b is not None:
+                    trav, conf = trav_b[b], conf_b[b]
+                elif prediction_per_pixel:
+                    trav, conf = pixelwise_map_rows_chunked(lambda rows: _score_rows(mlp, cg_cfg, cg_state, rows),
+                                                            code_hw[b : b + 1], H, W)
+                else:
+                    t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled)
+                    sid = segs[b].long().clamp(0, S - 1)
+                    trav, conf = t_s[sid], c_s[sid]
+                outs.append(FrameResult(trav, conf, pooled, counts > 0, segs[b], edges, edge_valid, centers))
+            return FrameResult(*(torch.stack(field) for field in zip(*outs)))
+
+    def _backbone(imgs: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H0, W0) -> the (B, N, 90) codes of the resized frames."""
+        if imgs.dtype == torch.uint8:
+            imgs = imgs.float() / 255.0
+        out = stego.vit(imagenet_normalize(resize_image(imgs, H, W)))
+        return stego.head(out["patch_tokens"])["code"]
+
+    backbone = BackboneGraphs(stego.vit, _backbone)
+
+    def _frames(cg_state, imgs, head, stage) -> FrameResult:
+        with stage(imgs) as codes:
+            return tail(cg_state, codes, head)
 
     @torch.no_grad()
     def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None, mesh=None) -> FrameResult:
         """(B, 3, H0, W0) -> FrameResult with a leading batch axis."""
         if mesh is not None:
-            return dp_split(mesh, lambda x: frames_batch(cg_state, x, head), imgs)
-        if imgs.dtype == torch.uint8:
-            imgs = imgs.float() / 255.0
-        out = stego.vit(imagenet_normalize(resize_image(imgs, H, W)))
-        return tail(cg_state, stego.head(out["patch_tokens"])["code"], head)
+            count("frame.backbone.graph.eager.mesh")
+            return dp_split(mesh, lambda x: _frames(cg_state, x, head, backbone.eager), imgs)
+        return _frames(cg_state, imgs, head, backbone)
+
+    @torch.no_grad()
+    def eager(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
+        return _frames(cg_state, imgs, head, backbone.eager)
 
     def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
         return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))
 
+    frames_batch.backbone = backbone
+    frames_batch.eager = eager
     frame.frames_batch = frames_batch
     frame.tail = tail
     return frame

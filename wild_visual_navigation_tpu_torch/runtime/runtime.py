@@ -165,6 +165,7 @@ class WVNRuntime:
         buffer_capacity: int = 256,
         reprojection_fanout: int = 32,
         backbone_params=None,
+        stego_head_params=None,
         use_fused: bool = True,
         gridmap_size: int = 0,
         gridmap_resolution: float = 0.1,
@@ -186,7 +187,10 @@ class WVNRuntime:
         that seeds the global np.random after construction replays with
         that seed here. `backbone_params` is a state dict
         of models/vit.py (utils/params.py::vit_state_from_jax converts a
-        JAX one). `mesh`: a ("dp", "tp") DeviceMesh over the ranks that
+        JAX one). `stego_head_params` is the STEGO code head's state dict
+        (models/stego_head.py::StegoHead; utils/params.py::
+        stego_head_state_from_jax converts a JAX one), for feature_type
+        "stego" only. `mesh`: a ("dp", "tp") DeviceMesh over the ranks that
         run this runtime together (see the module's docstring)."""
         self._device = torch_device(device, "WVNRuntime")
         self.mesh = mesh
@@ -205,6 +209,8 @@ class WVNRuntime:
         )
 
         fp = self.fe_params
+        if stego_head_params is not None and fp.feature_type != "stego":
+            raise ValueError(f"stego_head_params needs feature_type [stego] (got [{fp.feature_type}])")
         self._H = fp.network_input_image_height
         self._W = fp.network_input_image_width
 
@@ -222,6 +228,7 @@ class WVNRuntime:
                 slic_num_components=fp.slic_num_components,
                 cell_size=fp.grid_cell_size,
                 backbone_params=backbone_params,
+                head_params=stego_head_params,
                 quant=fp.dino_quant,
                 dtype=backbone_dtype,
             )
