@@ -88,6 +88,7 @@ from torch import nn
 
 from ..ops.flash_attention import flash_attention, kernel_tile, xla_attention, xla_attention_bf16
 from ..ops.resize import IMAGENET_MEAN, IMAGENET_STD
+from ..utils.devices import resident
 from .quant import attention_scores_int8, int8_matmul_scaled, max_over, quantize_symmetric, quantize_with_scale
 from .simple_mlp import lecun_normal_
 
@@ -358,19 +359,12 @@ def _torch_bicubic_matrix(in_size: int, out_size: int, offset: float = 0.1) -> n
     return M
 
 
-_BICUBIC_MATRICES: dict = {}  # (device, in_size, out_size) -> (out, in) fp32
-
-
 def bicubic_matrix(in_size: int, out_size: int, device) -> torch.Tensor:
     """`_torch_bicubic_matrix` as an fp32 tensor on `device`, built once per
-    (device, in_size, out_size) and kept there: on the card a host-to-device
-    copy waits for the stream, and a CUDA graph's capture takes none."""
-    key = (torch.device(device), in_size, out_size)
-    hit = _BICUBIC_MATRICES.get(key)
-    if hit is None:
-        hit = _BICUBIC_MATRICES.setdefault(key, torch.as_tensor(_torch_bicubic_matrix(in_size, out_size),
-                                                                device=key[0]))
-    return hit
+    (device, in_size, out_size) and kept there (utils/devices.py::resident)."""
+    dev = torch.device(device)
+    return resident(("bicubic_matrix", dev, in_size, out_size),
+                    lambda: torch.as_tensor(_torch_bicubic_matrix(in_size, out_size), device=dev))
 
 
 def _interpolate_pos_embed(pos: torch.Tensor, grid0: int, hp: int, wp: int) -> torch.Tensor:

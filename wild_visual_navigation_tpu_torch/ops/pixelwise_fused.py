@@ -18,15 +18,14 @@ where t0 / t1 are the W-contracted Gram maps of |upsample(feat)|²
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils.timers import span
+from ..utils.devices import resident
 from . import _cuda
-from .resize import _bilinear_matrix_np, _bilinear_pair_matrices_np
+from .resize import _bilinear_matrix_np, _bilinear_pair_matrices_np, bilinear_matrix, bilinear_pair_matrices
 
 
 def _row_tables(out_size: int, in_size: int):
@@ -71,12 +70,17 @@ def _row_runs(starts: np.ndarray) -> np.ndarray:
     return np.asarray(bounds, np.int32)
 
 
-@functools.lru_cache(maxsize=32)
-def _row_operands(out_size: int, in_size: int, device: torch.device):
+def _row_operands(out_size: int, in_size: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(starts, coef, runs) on `device`: they depend on the row counts
-    alone, so each shape builds and copies them once."""
-    starts, coef = _row_tables(out_size, in_size)
-    return tuple(torch.as_tensor(a, device=device) for a in (starts, coef, _row_runs(starts)))
+    alone, so each shape builds and copies them once (utils/devices.py::
+    resident)."""
+    dev = torch.device(device)
+
+    def build():
+        starts, coef = _row_tables(out_size, in_size)
+        return tuple(torch.as_tensor(a, device=dev) for a in (starts, coef, _row_runs(starts)))
+
+    return resident(("pixelwise_rows", dev, out_size, in_size), build)
 
 
 def dense_layers(mlp) -> list[tuple[torch.Tensor, torch.Tensor]]:
@@ -111,12 +115,8 @@ def fused_precompute(mlp, feat: torch.Tensor, out_h: int, out_w: int) -> FusedOp
     dev = feat.device
     (W0, b0), (W1, b1), (Wl, bl) = dense_layers(mlp)
 
-    def t(a):
-        return torch.as_tensor(a, device=dev)
-
-    with span("sync.pixelwise_operands"):  # pageable host-to-device copies: each waits for the stream
-        Mw = t(_bilinear_matrix_np(out_w, Wp))  # (W, Wp)
-        Mq, Mx = (t(m) for m in _bilinear_pair_matrices_np(out_w, Wp))  # (W, Wp), (W, Wp - 1)
+    Mw = bilinear_matrix(out_w, Wp, dev)  # (W, Wp)
+    Mq, Mx = bilinear_pair_matrices(out_w, Wp, dev)  # (W, Wp), (W, Wp - 1)
 
     # hw in bf16 products, as the reference computes it; the Gram-form
     # terms below stay fp32

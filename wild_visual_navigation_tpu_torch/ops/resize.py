@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.devices import resident
+
 
 def _nearest_indices(out_size: int, in_size: int, device=None) -> torch.Tensor:
     # F.interpolate(mode="nearest") mapping: floor(i * in / out), computed
@@ -62,23 +64,30 @@ def resize_image(img: torch.Tensor, new_h: int, new_w: int | None = None) -> tor
     return resize_nearest(img, new_h, new_w)
 
 
+def bilinear_taps(out_size: int, in_size: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The align_corners=True taps of `interpolate_bilinear` along one axis:
+    (i0, i1) int64 and the weight of i1, each (out_size,), computed on
+    `device` once per (device, out_size, in_size) and kept there."""
+    dev = torch.device(device)
+
+    def build():
+        if out_size == 1:
+            f = torch.zeros(1, dtype=torch.float32, device=dev)
+        else:
+            f = torch.arange(out_size, dtype=torch.float32, device=dev) * np.float32((in_size - 1) / (out_size - 1))
+        i0 = torch.floor(f).to(torch.int64).clamp(0, in_size - 1)
+        return i0, (i0 + 1).clamp(0, in_size - 1), f - i0.float()
+
+    return resident(("bilinear_taps", dev, out_size, in_size), build)
+
+
 def interpolate_bilinear(x: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:
     """Bilinear resize with align_corners=True on (..., H, W), in the
     reference's gather-and-lerp form."""
     h, w = x.shape[-2], x.shape[-1]
-
-    def coords(out, inp):
-        if out == 1:
-            return torch.zeros(1, dtype=torch.float32, device=x.device)
-        return torch.arange(out, dtype=torch.float32, device=x.device) * np.float32((inp - 1) / (out - 1))
-
-    fy, fx = coords(new_h, h), coords(new_w, w)
-    y0 = torch.floor(fy).to(torch.int64).clamp(0, h - 1)
-    x0 = torch.floor(fx).to(torch.int64).clamp(0, w - 1)
-    y1 = (y0 + 1).clamp(0, h - 1)
-    x1 = (x0 + 1).clamp(0, w - 1)
-    wy = (fy - y0.float())[:, None]
-    wx = (fx - x0.float())[None, :]
+    y0, y1, wy = bilinear_taps(new_h, h, x.device)
+    x0, x1, wx = bilinear_taps(new_w, w, x.device)
+    wy, wx = wy[:, None], wx[None, :]
     a = x[..., y0, :][..., x0]
     b = x[..., y0, :][..., x1]
     c = x[..., y1, :][..., x0]
@@ -115,7 +124,19 @@ def _bilinear_pair_matrices_np(out_size: int, in_size: int):
 
 
 def bilinear_matrix(out_size: int, in_size: int, device=None, dtype=torch.float32) -> torch.Tensor:
-    return torch.as_tensor(_bilinear_matrix_np(out_size, in_size), dtype=dtype, device=device)
+    """`_bilinear_matrix_np` as a tensor of `dtype` on `device`, built once
+    per (device, dtype, out_size, in_size) and kept there."""
+    dev = torch.device("cpu" if device is None else device)
+    return resident(("bilinear_matrix", dev, dtype, out_size, in_size),
+                    lambda: torch.as_tensor(_bilinear_matrix_np(out_size, in_size), dtype=dtype, device=dev))
+
+
+def bilinear_pair_matrices(out_size: int, in_size: int, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_bilinear_pair_matrices_np` (Mq, Mx) as fp32 tensors on `device`,
+    built once per (device, out_size, in_size) and kept there."""
+    dev = torch.device("cpu" if device is None else device)
+    return resident(("bilinear_pair_matrices", dev, out_size, in_size), lambda: tuple(
+        torch.as_tensor(m, device=dev) for m in _bilinear_pair_matrices_np(out_size, in_size)))
 
 
 PRECISIONS = (None, "default", "high", "highest")  # the reference's `precision=` names (jax.lax.Precision)
@@ -169,8 +190,8 @@ def interpolate_norm_sq_mxu(x: torch.Tensor, new_h: int, new_w: int) -> torch.Te
     g11 = torch.einsum("bdhw,bdhw->bhw", xf[:, :, :-1, :-1], xf[:, :, 1:, 1:])
     g1m1 = torch.einsum("bdhw,bdhw->bhw", xf[:, :, 1:, :-1], xf[:, :, :-1, 1:])
     h, w = x.shape[-2], x.shape[-1]
-    Aq, Ax = (torch.as_tensor(m, device=x.device) for m in _bilinear_pair_matrices_np(new_h, h))
-    Bq, Bx = (torch.as_tensor(m, device=x.device) for m in _bilinear_pair_matrices_np(new_w, w))
+    Aq, Ax = bilinear_pair_matrices(new_h, h, x.device)
+    Bq, Bx = bilinear_pair_matrices(new_w, w, x.device)
 
     def sep(m, Mh, Mw):
         return torch.einsum("pw,bow->bop", Mw, torch.einsum("oh,bhw->bow", Mh, m))
@@ -189,20 +210,12 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-_IMAGENET_CONSTANTS: dict = {}  # (device, dtype) -> (mean, std), each (3, 1, 1)
-
-
 def imagenet_constants(device, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
     """The ImageNet mean and std as (3, 1, 1) tensors of `dtype` on
-    `device`, built once per (device, dtype) and kept there: on the card a
-    host-to-device copy waits for the stream, and a CUDA graph's capture
-    takes none."""
-    key = (torch.device(device), dtype)
-    hit = _IMAGENET_CONSTANTS.get(key)
-    if hit is None:
-        hit = _IMAGENET_CONSTANTS.setdefault(key, tuple(
-            torch.tensor(c, dtype=dtype, device=key[0]).reshape(3, 1, 1) for c in (IMAGENET_MEAN, IMAGENET_STD)))
-    return hit
+    `device`, built once per (device, dtype) and kept there."""
+    dev = torch.device(device)
+    return resident(("imagenet", dev, dtype), lambda: tuple(
+        torch.tensor(c, dtype=dtype, device=dev).reshape(3, 1, 1) for c in (IMAGENET_MEAN, IMAGENET_STD)))
 
 
 def imagenet_normalize(img: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,6 @@ import functools
 import numpy as np
 import torch
 
-from ..utils.timers import span
 from .resize import _nearest_indices, bilinear_matrix
 
 _INT32_MAX = 2**31 - 1
@@ -42,9 +41,8 @@ def segment_mean_pool_upsampled(feat: torch.Tensor, seg: torch.Tensor, num_segme
 
     feat (D, Hp, Wp), seg (out_h, out_w) -> ((S, D) means, (S,) counts)."""
     D, Hp, Wp = feat.shape
-    with span("sync.pool_matrices"):  # pageable host-to-device copies: each waits for the stream
-        Mh = bilinear_matrix(out_h, Hp, feat.device)
-        Mw = bilinear_matrix(out_w, Wp, feat.device)
+    Mh = bilinear_matrix(out_h, Hp, feat.device)
+    Mw = bilinear_matrix(out_w, Wp, feat.device)
     onehot = _one_hot(seg, num_segments)  # (H, W, S)
     t = torch.einsum("hws,hp->pws", onehot, Mh)
     A = torch.einsum("pws,wq->spq", t, Mw)

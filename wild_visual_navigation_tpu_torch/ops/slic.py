@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from ..utils.devices import resident
+
 BIG = 1e30
 
 
@@ -59,6 +61,14 @@ def _init_index(num_components: int, height: int, width: int) -> torch.Tensor:
     yx = _grid_centers(num_components, height, width)
     idx = yx[:, 0].to(torch.int64) * width + yx[:, 1].to(torch.int64)
     return idx.clamp(0, height * width - 1)
+
+
+def init_index(num_components: int, height: int, width: int, device) -> torch.Tensor:
+    """`_init_index` on `device`, built once per (device, K, H, W) and kept
+    there (utils/devices.py::resident)."""
+    dev = torch.device(device)
+    return resident(("slic_init", dev, num_components, height, width),
+                    lambda: _init_index(num_components, height, width).to(dev))
 
 
 def slic_geometry(num_components: int, compactness: float, height: int, width: int):
@@ -116,7 +126,7 @@ def _slic_whole(img: torch.Tensor, num_components: int, compactness: float, iter
     K = num_components
     ws, win2 = slic_geometry(K, compactness, H, W)
     feats = pixel_features(rgb_to_lab(img)[None], ws)[0]  # (5, HW)
-    centers = feats[:, _init_index(K, H, W).to(img.device)].T.contiguous()  # (K, 5)
+    centers = feats[:, init_index(K, H, W, img.device)].T.contiguous()  # (K, 5)
     for _ in range(iterations):
         ids = _assign_plain(feats, centers, W, ws, win2)
         onehot = (ids[:, None] == torch.arange(K, device=img.device)[None, :]).float()

@@ -27,9 +27,8 @@ from dataclasses import dataclass
 
 import torch
 
-from ..utils.timers import span
 from . import _cuda
-from .slic import _assign_plain, _init_index, pixel_features, rgb_to_lab, slic_geometry
+from .slic import _assign_plain, init_index, pixel_features, rgb_to_lab, slic_geometry
 
 TILE = 16  # = kTile of csrc/slic_step.cu: a block's pixels are a 16 x 16 tile
 MAX_K = 512
@@ -166,9 +165,7 @@ def slic_batch_fused(imgs: torch.Tensor, num_components: int = 100, compactness:
     K = num_components
     ws, win2 = slic_geometry(K, compactness, H, W)
     feats = pixel_features(rgb_to_lab(imgs.float()), ws)  # (B, 5, HW)
-    with span("sync.slic_init"):  # a pageable host-to-device copy waits for the stream
-        init = _init_index(K, H, W).to(imgs.device)
-    centers = feats[:, :, init].transpose(1, 2)  # (B, K, 5)
+    centers = feats[:, :, init_index(K, H, W, imgs.device)].transpose(1, 2)  # (B, K, 5)
     if interpret:
         for _ in range(iterations):
             _, centers = slic_step_plain(feats, centers, W, ws, win2)

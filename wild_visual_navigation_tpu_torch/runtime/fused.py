@@ -23,10 +23,11 @@ segment over the frame's segment adjacency, whatever the prediction mode.
 Only a SimpleMLP reconstruction head goes through K2; the others score
 the upsampled features in row bands (`pixelwise_map_rows_chunked`).
 
-On the card the DINO and STEGO frames' backbone stage (uint8 to float,
-resize, normalise, the ViT; for STEGO also the code head) replays as one
-CUDA graph per input shape (`BackboneGraphs`); the segmentation and the
-head run eagerly on the graph's outputs.
+On the card the whole DINO frame replays as one CUDA graph per input key,
+the head and the ConfidenceState copied into the graph's own when a hot
+swap publishes new ones; the STEGO frame's backbone stage (uint8 to float,
+resize, normalise, the ViT, the code head) replays as one, and k-means and
+the head run eagerly on its outputs (`StageGraphs`).
 
 Under a ("dp", "tp") mesh, `frames_batch(..., mesh=mesh)` splits the frames
 over dp (padding B up to a multiple of dp), runs each rank's share and
@@ -43,6 +44,7 @@ that one module, never from one that training updates in place.
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 import warnings
 from typing import NamedTuple
@@ -59,6 +61,7 @@ from ..ops.resize import imagenet_normalize, interpolate_bilinear, resize_image
 from ..ops.slic import slic_batch
 from ..parallel.mesh import dp_split
 from ..utils.confidence_generator import ConfidenceConfig, ConfidenceState, confidence_inference
+from ..utils.devices import resident
 from ..utils.timers import count, span
 
 KMEANS_ITERATIONS = 10  # the STEGO frame's Lloyd steps (models/stego_head.py::cosine_kmeans' default)
@@ -92,7 +95,8 @@ def _segmentation(segmentation_type: str, H: int, W: int, S: int, slic_compactne
                   cell_size: int, max_edges: int):
     """SLIC (K3 on the card) or the fixed grid: segments(x) for a (B, 3, H, W)
     batch -> (B, H, W) ids, and graph(seg) for one (H, W) segmentation ->
-    (edges, edge_valid, centers); the grid's graph is built once."""
+    (edges, edge_valid, centers); the grid's ids and graph are built once
+    and kept on each device they are asked for on."""
     if segmentation_type == "slic":
         def segments(x):
             return slic_batch(x, num_components=S, compactness=slic_compactness, iterations=slic_iterations)
@@ -105,23 +109,29 @@ def _segmentation(segmentation_type: str, H: int, W: int, S: int, slic_compactne
     grid_graph = segment_ops.grid_constants(H, W, cell_size, S, max_edges=max_edges)
 
     def segments(x):
-        return segment_ops.segment_grid(H, W, cell_size, device=x.device)[None].expand(x.shape[0], H, W)
+        ids = resident(("grid_ids", x.device, H, W, cell_size),
+                       lambda: segment_ops.segment_grid(H, W, cell_size, device=x.device))
+        return ids[None].expand(x.shape[0], H, W)
 
     def graph(seg):
-        with span("sync.grid_graph"):  # pageable host-to-device copies: each waits for the stream
-            edges, edge_valid, centers, _ = (t.to(seg.device) for t in grid_graph)
+        edges, edge_valid, centers, _ = resident(("grid_graph", seg.device, H, W, cell_size, S, max_edges),
+                                                 lambda: tuple(t.to(seg.device) for t in grid_graph))
         return edges, edge_valid, centers
 
     return segments, graph
 
 
 class _Graph:
-    """One key's captured backbone stage, or the reason the key runs eagerly."""
+    """One key's captured stage, or the reason the key runs eagerly. `own`
+    holds the tensors of the graph's copies of the stage's static inputs
+    (`StageGraphs`), `fed` the inputs they were last copied from and those
+    inputs' tensor versions then."""
 
-    __slots__ = ("reason", "graph", "static_in", "out", "launches", "lock", "done")
+    __slots__ = ("reason", "graph", "static_in", "out", "launches", "own", "fed", "lock", "done")
 
-    def __init__(self, reason=None, graph=None, static_in=None, out=None, launches=None):
+    def __init__(self, reason=None, graph=None, static_in=None, out=None, launches=None, own=(), fed=((), [])):
         self.reason, self.graph, self.static_in, self.out, self.launches = reason, graph, static_in, out, launches
+        self.own, self.fed = own, fed
         self.lock = threading.Lock()
         self.done = None if graph is None else torch.cuda.Event()  # recorded where the last holder's reads end
 
@@ -138,79 +148,137 @@ def _split_reason(vit) -> str | None:
     return None
 
 
-class BackboneGraphs:
-    """A frame's backbone stage, `stage(imgs)` (the DINO frame's `(x, feat)`,
-    the STEGO frame's codes), as one CUDA graph per key: (device, B, C, H0,
-    W0, dtype, the ViT's quantisation and generation). What the stage runs
-    after the ViT is frozen (the STEGO code head), so the key holds the
-    ViT's state alone.
+def _tensors(obj) -> list[torch.Tensor]:
+    """The tensors of a stage's static input: a module's parameters and
+    buffers, or a NamedTuple's tensors (a ConfidenceState)."""
+    if isinstance(obj, torch.nn.Module):
+        return [*obj.parameters(), *obj.buffers()]
+    return [t for t in obj if isinstance(t, torch.Tensor)]
 
-    `with graphs(imgs) as out:` a key's first call runs the stage on a
-    side stream, as its own result and as the warm-up that builds the
-    resident constants, then captures it (`capture_error_mode=
+
+def _static_copy(obj):
+    """A graph's own copy of a static input: the module deep-copied, or the
+    NamedTuple with its tensors cloned."""
+    if isinstance(obj, torch.nn.Module):
+        return copy.deepcopy(obj).requires_grad_(False)
+    return obj._make(t.clone() if isinstance(t, torch.Tensor) else t for t in obj)
+
+
+class StageGraphs:
+    """A frame's stage, `stage(imgs, *static)`, as one CUDA graph per key:
+    (device, B, C, H0, W0, dtype, each static input's structure, the ViT's
+    quantisation and generation). The DINO frame's stage is the whole frame
+    (`whole`: the backbone, SLIC or the grid, pooling, adjacency, K2 and the
+    confidence) with the head and the ConfidenceState as static inputs;
+    the STEGO frame's is its backbone (the ViT and the frozen code head),
+    with none. A static input's structure is its type and its tensors'
+    shapes and dtypes, so what the stage decides from the head (K2 or row
+    bands, graph or row head) is decided at capture.
+
+    `with graphs(imgs, *static) as out:` a key's first call runs the stage
+    on a side stream, as its own result and as the warm-up that builds the
+    resident constants (utils/devices.py::resident), then captures it from
+    its own copies of the static inputs (`capture_error_mode=
     "thread_local"`, so a learner thread's work goes on meanwhile). Later
     calls copy the frame into the graph's static input and replay on the
-    caller's stream, and hand out the graph's static outputs under the
-    key's lock: the next caller's copy-in waits for the block to end, on the
-    host and, through an event, on the device. A replay adds the kernel
-    launches its capture recorded to the wrappers' counters.
+    caller's stream, under the key's lock: the next caller's copy-in waits
+    for the block to end, on the host and, through an event, on the device.
+    Before a replay, static inputs that are other objects than those last
+    copied (a hot swap publishes a new head and ConfidenceState), or whose
+    tensors were written in place since, are copied into the graph's
+    (`<counters>.head_copies`). A whole frame's replay hands out copies of
+    the graph's outputs; a backbone's hands out the outputs themselves, to
+    read inside the block. A replay adds the kernel launches its capture
+    recorded to the wrappers' counters.
 
     CPU input, a ViT split over tp or reducing over a mesh, and a key whose
-    capture raised (warned once) run the stage eagerly. Counters:
-    `frame.backbone.graph.captures`, `frame.backbone.graph.replays`,
-    `frame.backbone.graph.eager.<reason>` (`cpu`, `tp`, `mesh`, `capture`;
-    `mesh` also for a meshed `frames_batch`)."""
+    capture raised (warned once) run the stage eagerly. Counters under
+    `frame.graph` for a whole frame, else `frame.backbone.graph`:
+    `.captures`, `.replays`, `.head_copies`, `.eager.<reason>` (`cpu`, `tp`,
+    `mesh`, `capture`; `mesh` also for a meshed `frames_batch`). A replay
+    and a key's first call are timed by the span `frame.graph` for a whole
+    frame, which opens its own spans when it runs eagerly; a backbone's
+    replay, first call and eager run by `frame.backbone`."""
 
-    def __init__(self, vit, stage):
-        self.vit, self.stage = vit, stage
+    def __init__(self, vit, stage, whole: bool = False):
+        self.vit, self.stage, self.whole = vit, stage, whole
+        self.span_name, self.counters = ("frame.graph", "frame.graph") if whole else ("frame.backbone",
+                                                                                     "frame.backbone.graph")
         self.graphs: dict = {}  # key -> _Graph, of the ViT's current generation only
         self._capture_lock = threading.Lock()
         self._side: dict = {}  # device -> the capture's stream
+        self._seen: dict = {}  # static input's position -> (the last object there, its tensors, its structure)
         self._warned = False
 
-    def key(self, imgs: torch.Tensor) -> tuple:
-        return (imgs.device, *imgs.shape, imgs.dtype, self.vit.quant, self.vit.generation)
+    def _inspect(self, i: int, obj) -> tuple:
+        """(tensors, structure) of the static input at position i."""
+        seen = self._seen.get(i)
+        if seen is None or seen[0] is not obj:
+            tensors = _tensors(obj)
+            seen = self._seen[i] = (obj, tensors, (type(obj), *((tuple(t.shape), t.dtype) for t in tensors)))
+        return seen[1], seen[2]
+
+    def _fed(self, static: tuple) -> tuple:
+        """(the static inputs, their tensors' versions): what a graph copied."""
+        return static, [t._version for i, obj in enumerate(static) for t in self._inspect(i, obj)[0]]
+
+    def key(self, imgs: torch.Tensor, *static) -> tuple:
+        return (imgs.device, *imgs.shape, imgs.dtype, *(self._inspect(i, obj)[1] for i, obj in enumerate(static)),
+                self.vit.quant, self.vit.generation)
 
     @contextlib.contextmanager
-    def eager(self, imgs: torch.Tensor):
-        with span("frame.backbone"):
-            out = self.stage(imgs)
+    def eager(self, imgs: torch.Tensor, *static):
+        with contextlib.nullcontext() if self.whole else span(self.span_name):
+            out = self.stage(imgs, *static)
         yield out
 
     @contextlib.contextmanager
-    def __call__(self, imgs: torch.Tensor):
+    def __call__(self, imgs: torch.Tensor, *static):
         if imgs.device.type != "cuda":
-            count("frame.backbone.graph.eager.cpu")
-            with self.eager(imgs) as out:
+            count(f"{self.counters}.eager.cpu")
+            with self.eager(imgs, *static) as out:
                 yield out
             return
-        key = self.key(imgs)
+        key = self.key(imgs, *static)
         g = self.graphs.get(key)
         if g is None:
-            with span("frame.backbone"):
-                g, out = self._capture(key, imgs)
+            with span(self.span_name):
+                g, out = self._capture(key, imgs, static)
             if out is not None:  # this call ran the key's warm-up
                 yield out
                 return
         if g.reason is not None:
-            count(f"frame.backbone.graph.eager.{g.reason}")
-            with self.eager(imgs) as out:
+            count(f"{self.counters}.eager.{g.reason}")
+            with self.eager(imgs, *static) as out:
                 yield out
             return
         with g.lock:
             stream = torch.cuda.current_stream(imgs.device)
-            with span("frame.backbone"):
+            with span(self.span_name):
                 stream.wait_event(g.done)
                 g.static_in.copy_(imgs)
+                self._refresh(g, static)
                 g.graph.replay()
                 _cuda.count_recorded(g.launches)
-                count("frame.backbone.graph.replays")
+                count(f"{self.counters}.replays")
+                out = g.out._make(t.clone() for t in g.out) if self.whole else g.out
             try:
-                yield g.out
+                yield out
             finally:
                 g.done.record(stream)
 
-    def _capture(self, key: tuple, imgs: torch.Tensor):
+    def _refresh(self, g: _Graph, static: tuple) -> None:
+        """Copy the static inputs into the graph's own copies where they are
+        other objects than the ones last copied or were written in place
+        since, on the caller's stream."""
+        fed = self._fed(static)
+        if all(a is b for a, b in zip(fed[0], g.fed[0])) and fed[1] == g.fed[1]:
+            return
+        torch._foreach_copy_(g.own, [t for i, obj in enumerate(static) for t in self._inspect(i, obj)[0]])
+        g.fed = fed
+        count(f"{self.counters}.head_copies")
+
+    def _capture(self, key: tuple, imgs: torch.Tensor, static: tuple):
         """(the key's _Graph, this call's result if it ran the warm-up, else
         None); the graph is captured here unless another thread did."""
         with self._capture_lock:
@@ -221,19 +289,19 @@ class BackboneGraphs:
             self.graphs = {k: v for k, v in self.graphs.items() if k[-1] == key[-1]}
             reason, out = _split_reason(self.vit), None
             if reason is None:
-                out, g = self._record(key, imgs)
+                out, g = self._record(key, imgs, static)
                 reason = "capture" if g is None else None
             if reason is None:
-                count("frame.backbone.graph.captures")
+                count(f"{self.counters}.captures")
             else:
                 g = _Graph(reason)
             self.graphs[key] = g
             return g, out
 
-    def _record(self, key: tuple, imgs: torch.Tensor):
+    def _record(self, key: tuple, imgs: torch.Tensor, static: tuple):
         """The stage on the side stream (raises where it raises), then its
-        capture from a static input: (the stage's result, the _Graph or None
-        where the capture raised)."""
+        capture from a static input and copies of the static inputs: (the
+        stage's result, the _Graph or None where the capture raised)."""
         cur = torch.cuda.current_stream(imgs.device)
         side = self._side.get(imgs.device)
         if side is None:
@@ -241,25 +309,27 @@ class BackboneGraphs:
         side.wait_stream(cur)
         try:
             with torch.cuda.stream(side):
-                out = self.stage(imgs)
+                out = self.stage(imgs, *static)
                 static_in = torch.empty_like(imgs)
+                fed = self._fed(static)
+                own = tuple(_static_copy(obj) for obj in static)
                 graph = torch.cuda.CUDAGraph()
                 try:
                     with _cuda.recording_launches() as launches:
                         graph.capture_begin(capture_error_mode="thread_local")
                         try:
-                            static_out = self.stage(static_in)
+                            static_out = self.stage(static_in, *own)
                         finally:
                             graph.capture_end()
                 except Exception as exc:  # noqa: BLE001 - the key runs eagerly instead
                     if not self._warned:
                         self._warned = True
-                        warnings.warn(f"the backbone stage at {key} could not be captured as a CUDA graph "
-                                      f"({exc!r}); it runs eagerly", stacklevel=4)
+                        warnings.warn(f"the stage at {key} could not be captured as a CUDA graph ({exc!r}); it "
+                                      "runs eagerly", stacklevel=4)
                     return out, None
         finally:
             cur.wait_stream(side)
-        return out, _Graph(None, graph, static_in, static_out, launches)
+        return out, _Graph(None, graph, static_in, static_out, launches, [t for obj in own for t in _tensors(obj)], fed)
 
 
 def build_fused_frame_fn(
@@ -281,10 +351,13 @@ def build_fused_frame_fn(
     """Returns frame(cg_state, img, head=None) -> FrameResult, with
     frame.frames_batch(cg_state, imgs, head=None) -> FrameResult of
     stacked fields and frame.tail(cg_state, feat, segs, head=None), the
-    post-backbone stage. `head` scores in place of `mlp`. The backbone
-    stage replays as a CUDA graph on the card (`BackboneGraphs`, as
-    `frames_batch.backbone`); `frames_batch.eager(cg_state, imgs,
-    head=None)` runs it eagerly, for comparison.
+    post-backbone stage. `head` scores in place of `mlp`. On the card the
+    whole frame replays as a CUDA graph, the head and the ConfidenceState
+    copied in when they change (`StageGraphs`, as `frames_batch.graphs`);
+    `frames_batch.eager(cg_state, imgs, head=None)` runs it eagerly, for
+    comparison. Spans: `frame.graph` around a replay (and a key's first
+    call); `frame.backbone`, `frame.segment` and `frame.head` on the eager
+    paths.
 
     img: (1, 3, H0, W0) in [0, 1], float or uint8. Output maps are
     (input_size, input_width or input_size). Square configs resize the
@@ -354,32 +427,35 @@ def build_fused_frame_fn(
         x = resize_image(imgs, H, W)
         return x, dense_features(vit, imagenet_normalize(x))
 
-    backbone = BackboneGraphs(vit, _backbone)
+    def _frames(imgs: torch.Tensor, mlp, cg_state: ConfidenceState) -> FrameResult:
+        with span("frame.backbone"):
+            x, feat = _backbone(imgs)
+        with span("frame.segment"):
+            segs = _segments(x)
+        with span("frame.head"):
+            return tail(cg_state, feat, segs, mlp)
 
-    def _frames(cg_state, imgs, head, stage) -> FrameResult:
-        with stage(imgs) as (x, feat):
-            with span("frame.segment"):
-                segs = _segments(x)
-            with span("frame.head"):
-                return tail(cg_state, feat, segs, head)
+    graphs = StageGraphs(vit, _frames, whole=True)
 
     @torch.no_grad()
     def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None, mesh=None) -> FrameResult:
         """(B, 3, H0, W0) -> FrameResult with a leading batch axis; the
         backbone, SLIC and the per-pixel scorer each run once on the batch."""
+        mlp = default_mlp if head is None else head
         if mesh is not None:
-            count("frame.backbone.graph.eager.mesh")
-            return dp_split(mesh, lambda x: _frames(cg_state, x, head, backbone.eager), imgs)
-        return _frames(cg_state, imgs, head, backbone)
+            count("frame.graph.eager.mesh")
+            return dp_split(mesh, lambda x: _frames(x, mlp, cg_state), imgs)
+        with graphs(imgs, mlp, cg_state) as out:
+            return out
 
     @torch.no_grad()
     def eager(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
-        return _frames(cg_state, imgs, head, backbone.eager)
+        return _frames(imgs, default_mlp if head is None else head, cg_state)
 
     def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
         return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))
 
-    frames_batch.backbone = backbone
+    frames_batch.graphs = graphs
     frames_batch.eager = eager
     frame.frames_batch = frames_batch
     frame.tail = tail
@@ -411,7 +487,7 @@ def build_fused_stego_frame_fn(
     patch-aligned.
 
     On the card the backbone stage (uint8 to float, resize, normalise, the
-    ViT, the code head) replays as a CUDA graph (`BackboneGraphs`, as
+    ViT, the code head) replays as a CUDA graph (`StageGraphs`, as
     `frames_batch.backbone`; `frames_batch.eager` runs it eagerly). Spans:
     `frame.backbone`, then in the tail `frame.segment` (k-means and the
     labels' nearest upsample) and `frame.head` (K2, pooling, adjacency and
@@ -483,7 +559,7 @@ def build_fused_stego_frame_fn(
         out = stego.vit(imagenet_normalize(resize_image(imgs, H, W)))
         return stego.head(out["patch_tokens"])["code"]
 
-    backbone = BackboneGraphs(stego.vit, _backbone)
+    backbone = StageGraphs(stego.vit, _backbone)
 
     def _frames(cg_state, imgs, head, stage) -> FrameResult:
         with stage(imgs) as codes:
