@@ -167,7 +167,7 @@ def test_stego_frame_records_its_spans_and_counters(jackal):
     assert sum(r.name == "frame.dispatch" for r in recs) == 2
     c = snap["counters"]
     assert c["frame.segment.kmeans.images"] == 2 and c["frame.segment.kmeans.steps"] == 2 * fused.KMEANS_ITERATIONS
-    assert c["frame.backbone.graph.eager.cpu"] == 2
+    assert c["frame.graph.eager.cpu"] == 2
 
 
 @pytest.mark.gpu
@@ -175,8 +175,8 @@ def test_stego_frame_records_its_spans_and_counters(jackal):
 def test_graphed_stego_stage_equals_the_eager_one(dtype):
     """ViT-B/8 and the STEGO head at 224 on the card, B = 1, in bf16 (the
     port's default) and in float32: the key's first call captures, later
-    distinct frames replay, each result bit-identical to the eager stage,
-    replays counted."""
+    distinct frames replay, each result bit-identical to the eager stage
+    and unchanged by the replays after it, replays counted."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from wild_visual_navigation_tpu_torch.feature_extractor.stego import StegoInterface
@@ -194,12 +194,16 @@ def test_graphed_stego_stage_equals_the_eager_one(dtype):
     cg = confidence_init(cuda)
     timers.reset()
     first = fb(cg, imgs[0])
-    assert timers.snapshot()["counters"]["frame.backbone.graph.captures"] == 1
+    assert timers.snapshot()["counters"]["frame.graph.captures"] == 1
+    results = [(first, [t.clone() for t in first])]
     for img in imgs[1:]:
         got = fb(cg, img)
+        results.append((got, [t.clone() for t in got]))
         assert all(torch.equal(a, b) for a, b in zip(got, fb.eager(cg, img)))
         assert not torch.equal(got.traversability, first.traversability)
+    # the replays hand out copies of their codes: each result, the first after three replays, stands as it came
+    assert all(torch.equal(a, b) for got, kept in results for a, b in zip(got, kept))
     c = timers.snapshot()["counters"]
-    assert c["frame.backbone.graph.replays"] == 3 and c["frame.segment.kmeans.images"] == 7
-    assert not [k for k in c if k.startswith("frame.backbone.graph.eager.")]
+    assert c["frame.graph.replays"] == 3 and c["frame.segment.kmeans.images"] == 7
+    assert not [k for k in c if k.startswith("frame.graph.eager.")]
     timers.reset()

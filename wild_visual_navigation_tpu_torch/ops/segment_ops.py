@@ -9,11 +9,10 @@ reference's one-hot ignores them.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from ..utils.devices import resident
 from .resize import _nearest_indices, bilinear_matrix
 
 _INT32_MAX = 2**31 - 1
@@ -157,11 +156,11 @@ def adjacency_list(seg: torch.Tensor, num_segments: int, max_edges: int = 512, i
     return torch.stack([le, ri], dim=1).to(torch.int32), valid
 
 
-@functools.lru_cache(maxsize=32)
 def _upsampled_cell_sums(out_h: int, out_w: int, hp: int, wp: int, device) -> torch.Tensor:
     """(hp·wp, 3) per patch cell: the pixel sums of x and y and the pixel
     count of the cell's block under the integer nearest upsample
-    `r = (y · hp) // out_h`. Built once per shape and device."""
+    `r = (y · hp) // out_h`. Built once per shape and device and kept there."""
+    dev = torch.device(device)
 
     def block_sums(n_out, n_in):
         idx = (np.arange(n_out) * n_in) // n_out  # pixel -> patch row
@@ -171,12 +170,15 @@ def _upsampled_cell_sums(out_h: int, out_w: int, hp: int, wp: int, device) -> to
         np.add.at(s, idx, np.arange(n_out, dtype=np.float64))
         return w.astype(np.float32), s.astype(np.float32)
 
-    w_y, s_y = block_sums(out_h, hp)
-    w_x, s_x = block_sums(out_w, wp)
-    cnt = (w_y[:, None] * w_x[None, :]).reshape(-1)
-    sx = (w_y[:, None] * s_x[None, :]).reshape(-1)
-    sy = (s_y[:, None] * w_x[None, :]).reshape(-1)
-    return torch.as_tensor(np.stack([sx, sy, cnt], axis=-1), device=device)
+    def build():
+        w_y, s_y = block_sums(out_h, hp)
+        w_x, s_x = block_sums(out_w, wp)
+        cnt = (w_y[:, None] * w_x[None, :]).reshape(-1)
+        sx = (w_y[:, None] * s_x[None, :]).reshape(-1)
+        sy = (s_y[:, None] * w_x[None, :]).reshape(-1)
+        return torch.as_tensor(np.stack([sx, sy, cnt], axis=-1), device=dev)
+
+    return resident(("upsampled_cell_sums", dev, out_h, out_w, hp, wp), build)
 
 
 def upsampled_adjacency_and_centers(seg_p: torch.Tensor, num_segments: int, out_h: int, out_w: int,

@@ -27,7 +27,8 @@ On the card the whole DINO frame replays as one CUDA graph per input key,
 the head and the ConfidenceState copied into the graph's own when a hot
 swap publishes new ones; the STEGO frame's backbone stage (uint8 to float,
 resize, normalise, the ViT, the code head) replays as one, and k-means and
-the head run eagerly on its outputs (`StageGraphs`).
+the head run eagerly on a copy of its codes (`StageGraphs`). Each frame
+pools and builds its graph its own way, and `_score_frame` scores them all.
 
 Under a ("dp", "tp") mesh, `frames_batch(..., mesh=mesh)` splits the frames
 over dp (padding B up to a multiple of dp), runs each rank's share and
@@ -43,7 +44,6 @@ that one module, never from one that training updates in place.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import threading
 import warnings
@@ -91,6 +91,42 @@ def _score_rows(mlp, cg_cfg, cg_state, x, anomaly: bool = False, edges=None, edg
     return out[:, 0], confidence_inference(cg_cfg, cg_state, reco)
 
 
+def _score_frame(mlp, cg_cfg, cg_state, pooled, seg, edges, edge_valid, pixels=None, anomaly: bool = False):
+    """One frame's (trav, conf) maps. A graph head scores the (S, D) pooled
+    rows over the frame's adjacency, whatever `pixels`. Another head scores
+    per pixel from `pixels`: a (trav, conf) pair already scored (K2 over the
+    batch, `_k2_batch`), or pixels(score) that scores the frame's rows with
+    score(rows) -> (trav, conf) (in row bands, or at patch resolution and
+    then interpolated); with no `pixels`, per segment. Per-segment scores
+    are gathered over seg (H, W)."""
+    if pixels is not None and not model_needs_edges(mlp):
+        return pixels if isinstance(pixels, tuple) else pixels(
+            lambda rows: _score_rows(mlp, cg_cfg, cg_state, rows, anomaly))
+    t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, anomaly, edges, edge_valid)
+    sid = seg.long().clamp(0, pooled.shape[0] - 1)
+    return t_s[sid], c_s[sid]
+
+
+def _k2_batch(mlp, cg_cfg, cg_state, feat, H: int, W: int, per_pixel: bool, at_patch_res: bool = False,
+              anomaly: bool = False):
+    """Each image's (trav, conf) maps, (H, W), from one K2 launch over the
+    batch's (B, D, Hp, Wp) features where the frame scores per pixel at
+    full resolution with a head K2 takes (pixelwise.supports_optimized);
+    else None, and each image scores its own pixels."""
+    if per_pixel and not at_patch_res and not anomaly and pixelwise_supports(mlp):
+        return list(zip(*pixelwise_score(mlp, feat, H, W, cg_cfg, cg_state)))
+    return None
+
+
+def _network_input(imgs: torch.Tensor, H: int | None = None, W: int | None = None):
+    """(B, 3, H0, W0) frames, uint8 or float in [0, 1] -> (the float frames
+    resized to (H, W), as they are where H is None; those normalised)."""
+    if imgs.dtype == torch.uint8:
+        imgs = imgs.float() / 255.0
+    x = imgs if H is None else resize_image(imgs, H, W)
+    return x, imagenet_normalize(x)
+
+
 def _segmentation(segmentation_type: str, H: int, W: int, S: int, slic_compactness: float, slic_iterations: int,
                   cell_size: int, max_edges: int):
     """SLIC (K3 on the card) or the fixed grid: segments(x) for a (B, 3, H, W)
@@ -133,7 +169,7 @@ class _Graph:
         self.reason, self.graph, self.static_in, self.out, self.launches = reason, graph, static_in, out, launches
         self.own, self.fed = own, fed
         self.lock = threading.Lock()
-        self.done = None if graph is None else torch.cuda.Event()  # recorded where the last holder's reads end
+        self.done = None if graph is None else torch.cuda.Event()  # recorded after the last replay's copies out
 
 
 def _split_reason(vit) -> str | None:
@@ -165,45 +201,40 @@ def _static_copy(obj):
 
 
 class StageGraphs:
-    """A frame's stage, `stage(imgs, *static)`, as one CUDA graph per key:
-    (device, B, C, H0, W0, dtype, each static input's structure, the ViT's
-    quantisation and generation). The DINO frame's stage is the whole frame
-    (`whole`: the backbone, SLIC or the grid, pooling, adjacency, K2 and the
-    confidence) with the head and the ConfidenceState as static inputs;
-    the STEGO frame's is its backbone (the ViT and the frozen code head),
-    with none. A static input's structure is its type and its tensors'
-    shapes and dtypes, so what the stage decides from the head (K2 or row
-    bands, graph or row head) is decided at capture.
+    """A frame's stage, `stage(imgs, *static)` -> a tuple or NamedTuple of
+    tensors, as one CUDA graph per key: (device, B, C, H0, W0, dtype, each
+    static input's structure, the ViT's quantisation and generation). The
+    DINO frame's stage is the whole frame (the backbone, SLIC or the grid,
+    pooling, adjacency, K2 and the confidence) with the head and the
+    ConfidenceState as static inputs; the STEGO frame's is its backbone
+    (the ViT and the frozen code head), with none. A static input's
+    structure is its type and its tensors' shapes and dtypes, so what the
+    stage decides from the head (K2 or row bands, graph or row head) is
+    decided at capture.
 
-    `with graphs(imgs, *static) as out:` a key's first call runs the stage
-    on a side stream, as its own result and as the warm-up that builds the
-    resident constants (utils/devices.py::resident), then captures it from
-    its own copies of the static inputs (`capture_error_mode=
-    "thread_local"`, so a learner thread's work goes on meanwhile). Later
-    calls copy the frame into the graph's static input and replay on the
-    caller's stream, under the key's lock: the next caller's copy-in waits
-    for the block to end, on the host and, through an event, on the device.
-    Before a replay, static inputs that are other objects than those last
-    copied (a hot swap publishes a new head and ConfidenceState), or whose
-    tensors were written in place since, are copied into the graph's
-    (`<counters>.head_copies`). A whole frame's replay hands out copies of
-    the graph's outputs; a backbone's hands out the outputs themselves, to
-    read inside the block. A replay adds the kernel launches its capture
-    recorded to the wrappers' counters.
+    `graphs(imgs, *static)`: a key's first call runs the stage on a side
+    stream, as its own result and as the warm-up that builds the resident
+    constants (utils/devices.py::resident), then captures it from its own
+    copies of the static inputs (`capture_error_mode="thread_local"`, so a
+    learner thread's work goes on meanwhile). Later calls, under the key's
+    lock, copy the frame into the graph's static input, copy in the static
+    inputs that are other objects than those last copied (a hot swap
+    publishes a new head and ConfidenceState) or whose tensors were written
+    in place since (`frame.graph.head_copies`), replay on the caller's
+    stream and hand out copies of the graph's outputs; an event recorded
+    after the copies holds the next caller's copy-in back on the device. A
+    replay adds the kernel launches its capture recorded to the wrappers'
+    counters.
 
     CPU input, a ViT split over tp or reducing over a mesh, and a key whose
-    capture raised (warned once) run the stage eagerly. Counters under
-    `frame.graph` for a whole frame, else `frame.backbone.graph`:
-    `.captures`, `.replays`, `.head_copies`, `.eager.<reason>` (`cpu`, `tp`,
-    `mesh`, `capture`; `mesh` also for a meshed `frames_batch`). A replay
-    and a key's first call are timed by the span `frame.graph` for a whole
-    frame, which opens its own spans when it runs eagerly; a backbone's
-    replay, first call and eager run by `frame.backbone`."""
+    capture raised (warned once) run the stage eagerly. Counters
+    `frame.graph.captures`, `.replays`, `.head_copies`, `.eager.<reason>`
+    (`cpu`, `tp`, `mesh`, `capture`; `mesh` also for a meshed
+    `frames_batch`). The span `frame.graph` times a replay and a key's first
+    call; the stage opens its own spans where it runs."""
 
-    def __init__(self, vit, stage, whole: bool = False):
-        self.vit, self.stage, self.whole = vit, stage, whole
-        self.span_name, self.counters = ("frame.graph", "frame.graph") if whole else ("frame.backbone",
-                                                                                     "frame.backbone.graph")
+    def __init__(self, vit, stage):
+        self.vit, self.stage = vit, stage
         self.graphs: dict = {}  # key -> _Graph, of the ViT's current generation only
         self._capture_lock = threading.Lock()
         self._side: dict = {}  # device -> the capture's stream
@@ -226,46 +257,32 @@ class StageGraphs:
         return (imgs.device, *imgs.shape, imgs.dtype, *(self._inspect(i, obj)[1] for i, obj in enumerate(static)),
                 self.vit.quant, self.vit.generation)
 
-    @contextlib.contextmanager
-    def eager(self, imgs: torch.Tensor, *static):
-        with contextlib.nullcontext() if self.whole else span(self.span_name):
-            out = self.stage(imgs, *static)
-        yield out
-
-    @contextlib.contextmanager
     def __call__(self, imgs: torch.Tensor, *static):
         if imgs.device.type != "cuda":
-            count(f"{self.counters}.eager.cpu")
-            with self.eager(imgs, *static) as out:
-                yield out
-            return
+            count("frame.graph.eager.cpu")
+            return self.stage(imgs, *static)
         key = self.key(imgs, *static)
         g = self.graphs.get(key)
         if g is None:
-            with span(self.span_name):
+            with span("frame.graph"):
                 g, out = self._capture(key, imgs, static)
             if out is not None:  # this call ran the key's warm-up
-                yield out
-                return
+                return out
         if g.reason is not None:
-            count(f"{self.counters}.eager.{g.reason}")
-            with self.eager(imgs, *static) as out:
-                yield out
-            return
+            count(f"frame.graph.eager.{g.reason}")
+            return self.stage(imgs, *static)
         with g.lock:
             stream = torch.cuda.current_stream(imgs.device)
-            with span(self.span_name):
+            with span("frame.graph"):
                 stream.wait_event(g.done)
                 g.static_in.copy_(imgs)
                 self._refresh(g, static)
                 g.graph.replay()
                 _cuda.count_recorded(g.launches)
-                count(f"{self.counters}.replays")
-                out = g.out._make(t.clone() for t in g.out) if self.whole else g.out
-            try:
-                yield out
-            finally:
-                g.done.record(stream)
+                count("frame.graph.replays")
+                out = [t.clone() for t in g.out]
+            g.done.record(stream)
+        return g.out._make(out) if hasattr(g.out, "_make") else tuple(out)
 
     def _refresh(self, g: _Graph, static: tuple) -> None:
         """Copy the static inputs into the graph's own copies where they are
@@ -276,7 +293,7 @@ class StageGraphs:
             return
         torch._foreach_copy_(g.own, [t for i, obj in enumerate(static) for t in self._inspect(i, obj)[0]])
         g.fed = fed
-        count(f"{self.counters}.head_copies")
+        count("frame.graph.head_copies")
 
     def _capture(self, key: tuple, imgs: torch.Tensor, static: tuple):
         """(the key's _Graph, this call's result if it ran the warm-up, else
@@ -292,7 +309,7 @@ class StageGraphs:
                 out, g = self._record(key, imgs, static)
                 reason = "capture" if g is None else None
             if reason is None:
-                count(f"{self.counters}.captures")
+                count("frame.graph.captures")
             else:
                 g = _Graph(reason)
             self.graphs[key] = g
@@ -332,6 +349,42 @@ class StageGraphs:
         return out, _Graph(None, graph, static_in, static_out, launches, [t for obj in own for t in _tensors(obj)], fed)
 
 
+def _wire(frame_of, stage, tail, default_mlp, graphs: StageGraphs | None = None):
+    """frame(cg_state, img, head=None) -> FrameResult, with
+    frame.frames_batch(cg_state, imgs, head=None, mesh=None), which runs the
+    stage through `graphs` (eagerly where there are none, or under a mesh),
+    frames_batch.graphs, frames_batch.eager(cg_state, imgs, head=None) and
+    frame.tail. frame_of(run, cg_state, imgs, mlp) -> FrameResult is a
+    frame with run(imgs, *static) for the stage."""
+
+    @torch.no_grad()
+    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None, mesh=None) -> FrameResult:
+        mlp = default_mlp if head is None else head
+        if mesh is not None:
+            if graphs is not None:
+                count("frame.graph.eager.mesh")
+            return dp_split(mesh, lambda x: frame_of(stage, cg_state, x, mlp), imgs)
+        return frame_of(graphs or stage, cg_state, imgs, mlp)
+
+    @torch.no_grad()
+    def eager(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
+        return frame_of(stage, cg_state, imgs, default_mlp if head is None else head)
+
+    def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
+        return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))
+
+    frames_batch.graphs = graphs
+    frames_batch.eager = eager
+    frame.frames_batch = frames_batch
+    frame.tail = tail
+    return frame
+
+
+def _whole(run, cg_state, imgs, mlp) -> FrameResult:
+    """A frame whose stage is all of it, the head and the ConfidenceState its static inputs."""
+    return run(imgs, mlp, cg_state)
+
+
 def build_fused_frame_fn(
     vit,
     mlp,
@@ -356,8 +409,8 @@ def build_fused_frame_fn(
     copied in when they change (`StageGraphs`, as `frames_batch.graphs`);
     `frames_batch.eager(cg_state, imgs, head=None)` runs it eagerly, for
     comparison. Spans: `frame.graph` around a replay (and a key's first
-    call); `frame.backbone`, `frame.segment` and `frame.head` on the eager
-    paths.
+    call); `frame.backbone`, `frame.segment` and `frame.head` where the
+    frame runs eagerly.
 
     img: (1, 3, H0, W0) in [0, 1], float or uint8. Output maps are
     (input_size, input_width or input_size). Square configs resize the
@@ -376,32 +429,25 @@ def build_fused_frame_fn(
     _segments, _graph = _segmentation(segmentation_type, H, W, S, slic_compactness, slic_iterations, cell_size,
                                       max_edges)
 
-    def _one(mlp, cg_state, feat_i, seg, trav=None, conf=None):
-        """Per-image tail. feat_i (D, Hp, Wp); seg (H, W); trav / conf
-        are given when the batch was scored per pixel already."""
+    def _one(mlp, cg_state, feat_i, seg, k2=None):
+        """Per-image tail. feat_i (D, Hp, Wp); seg (H, W); k2 the image's
+        (trav, conf) when the batch was scored per pixel already."""
         edges, edge_valid, centers = _graph(seg)
         D, Hp, Wp = feat_i.shape
-        sid = seg.long().clamp(0, S - 1)
-        if model_needs_edges(mlp):
-            # graph heads score per segment over the frame's adjacency
-            pooled, counts = segment_ops.segment_mean_pool_upsampled(feat_i.float(), seg, S, H, W)
-            t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, anomaly, edges, edge_valid)
-            return FrameResult(t_s[sid], c_s[sid], pooled, counts > 0, seg, edges, edge_valid, centers)
-        if score_at_patch_res:
+        if score_at_patch_res and not model_needs_edges(mlp):  # graph heads pool at full resolution
             ph, pw = H // Hp, W // Wp
             pooled, counts = segment_ops.segment_mean_pool(feat_i, seg[ph // 2 :: ph, pw // 2 :: pw][:Hp, :Wp], S)
-            if prediction_per_pixel:
-                t_r, c_r = _score_rows(mlp, cg_cfg, cg_state, feat_i.reshape(D, -1).T, anomaly)
-                trav = interpolate_bilinear(t_r.reshape(1, 1, Hp, Wp), H, W)[0, 0]
-                conf = interpolate_bilinear(c_r.reshape(1, 1, Hp, Wp), H, W)[0, 0]
+
+            def rows(score):  # per patch, then interpolated
+                return tuple(interpolate_bilinear(m.reshape(1, 1, Hp, Wp), H, W)[0, 0]
+                             for m in score(feat_i.reshape(D, -1).T))
         else:
             pooled, counts = segment_ops.segment_mean_pool_upsampled(feat_i.float(), seg, S, H, W)
-            if prediction_per_pixel and trav is None:
-                trav, conf = pixelwise_map_rows_chunked(
-                    lambda rows: _score_rows(mlp, cg_cfg, cg_state, rows, anomaly), feat_i[None], H, W)
-        if not prediction_per_pixel:
-            t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, anomaly)
-            trav, conf = t_s[sid], c_s[sid]
+
+            def rows(score):
+                return pixelwise_map_rows_chunked(score, feat_i[None], H, W)
+        trav, conf = _score_frame(mlp, cg_cfg, cg_state, pooled, seg, edges, edge_valid,
+                                  (k2 or rows) if prediction_per_pixel else None, anomaly)
         return FrameResult(trav, conf, pooled, counts > 0, seg, edges, edge_valid, centers)
 
     @torch.no_grad()
@@ -409,57 +455,20 @@ def build_fused_frame_fn(
         """feat (B, D, Hp, Wp), segs (B, H, W) -> FrameResult with a
         leading batch axis on every field."""
         mlp = default_mlp if head is None else head
-        trav_b = conf_b = None
-        if prediction_per_pixel and not score_at_patch_res and not anomaly and pixelwise_supports(mlp):
-            # Gram per-pixel scorer over the whole batch: one K2 launch
-            trav_b, conf_b = pixelwise_score(mlp, feat, H, W, cg_cfg, cg_state)
-        outs = [
-            _one(mlp, cg_state, feat[b], segs[b], None if trav_b is None else trav_b[b], None if conf_b is None else conf_b[b])
-            for b in range(feat.shape[0])
-        ]
+        k2 = _k2_batch(mlp, cg_cfg, cg_state, feat, H, W, prediction_per_pixel, score_at_patch_res, anomaly)
+        outs = [_one(mlp, cg_state, feat[b], segs[b], k2 and k2[b]) for b in range(feat.shape[0])]
         return FrameResult(*(torch.stack(field) for field in zip(*outs)))
-
-    def _backbone(imgs: torch.Tensor):
-        """(B, 3, H0, W0) -> the resized (B, 3, H, W) image the segmentation
-        takes and the (B, D, Hp, Wp) features."""
-        if imgs.dtype == torch.uint8:
-            imgs = imgs.float() / 255.0
-        x = resize_image(imgs, H, W)
-        return x, dense_features(vit, imagenet_normalize(x))
 
     def _frames(imgs: torch.Tensor, mlp, cg_state: ConfidenceState) -> FrameResult:
         with span("frame.backbone"):
-            x, feat = _backbone(imgs)
+            x, normed = _network_input(imgs, H, W)
+            feat = dense_features(vit, normed)
         with span("frame.segment"):
             segs = _segments(x)
         with span("frame.head"):
             return tail(cg_state, feat, segs, mlp)
 
-    graphs = StageGraphs(vit, _frames, whole=True)
-
-    @torch.no_grad()
-    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None, mesh=None) -> FrameResult:
-        """(B, 3, H0, W0) -> FrameResult with a leading batch axis; the
-        backbone, SLIC and the per-pixel scorer each run once on the batch."""
-        mlp = default_mlp if head is None else head
-        if mesh is not None:
-            count("frame.graph.eager.mesh")
-            return dp_split(mesh, lambda x: _frames(x, mlp, cg_state), imgs)
-        with graphs(imgs, mlp, cg_state) as out:
-            return out
-
-    @torch.no_grad()
-    def eager(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
-        return _frames(imgs, default_mlp if head is None else head, cg_state)
-
-    def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
-        return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))
-
-    frames_batch.graphs = graphs
-    frames_batch.eager = eager
-    frame.frames_batch = frames_batch
-    frame.tail = tail
-    return frame
+    return _wire(_whole, _frames, tail, mlp, StageGraphs(vit, _frames))
 
 
 def build_fused_stego_frame_fn(
@@ -488,9 +497,11 @@ def build_fused_stego_frame_fn(
 
     On the card the backbone stage (uint8 to float, resize, normalise, the
     ViT, the code head) replays as a CUDA graph (`StageGraphs`, as
-    `frames_batch.backbone`; `frames_batch.eager` runs it eagerly). Spans:
-    `frame.backbone`, then in the tail `frame.segment` (k-means and the
-    labels' nearest upsample) and `frame.head` (K2, pooling, adjacency and
+    `frames_batch.graphs`; `frames_batch.eager` runs it eagerly), and the
+    tail runs eagerly on a copy of its codes. Spans: `frame.graph` around a
+    replay (and a key's first call), `frame.backbone` where the stage runs
+    eagerly, then in the tail `frame.segment` (k-means and the labels'
+    nearest upsample) and `frame.head` (K2, pooling, adjacency and
     centres); counters `frame.segment.kmeans.images` and
     `frame.segment.kmeans.steps` (images x Lloyd steps)."""
     H = input_size
@@ -502,89 +513,51 @@ def build_fused_stego_frame_fn(
     hp, wp = H // ps, W // ps
     if init_idx is None:
         init_idx = kmeans_init_indices(torch.Generator().manual_seed(0), hp * wp, S)
+    init_key = tuple(init_idx.tolist())
     default_mlp = mlp
-    per_device: dict = {}
 
-    def constants(device):
-        """The initial indices and the integer nearest-upsample maps on `device`."""
-        if device not in per_device:
-            per_device[device] = (init_idx.to(device), (torch.arange(H, device=device) * hp) // H,
-                                  (torch.arange(W, device=device) * wp) // W)
-        return per_device[device]
+    def nearest(n_out: int, n_in: int, device):
+        """The integer nearest-upsample map (y · n_in) // n_out on `device`."""
+        return resident(("nearest_upsample", device, n_out, n_in),
+                        lambda: (torch.arange(n_out, device=device) * n_in) // n_out)
 
     @torch.no_grad()
     def tail(cg_state: ConfidenceState, codes: torch.Tensor, head=None) -> FrameResult:
         """codes (B, N, 90) -> FrameResult with a leading batch axis."""
         mlp = default_mlp if head is None else head
-        B = codes.shape[0]
-        idx, iy, ix = constants(codes.device)
+        B, dev = codes.shape[0], codes.device
+        idx = resident(("kmeans_init", dev, init_key), lambda: init_idx.to(dev))
         with span("frame.segment"):
             labels, _ = cosine_kmeans(codes, idx, KMEANS_ITERATIONS)
             count("frame.segment.kmeans.images", B)
             count("frame.segment.kmeans.steps", B * KMEANS_ITERATIONS)
             seg_p = labels.reshape(B, hp, wp)
             # the integer rule (y · hp) // H, the map upsampled_adjacency_and_centers assumes
-            segs = seg_p[:, iy][:, :, ix]
+            segs = seg_p[:, nearest(H, hp, dev)][:, :, nearest(W, wp, dev)]
         with span("frame.head"):
             code_hw = codes.reshape(B, hp, wp, -1).permute(0, 3, 1, 2)
-            trav_b = conf_b = None
-            if prediction_per_pixel and pixelwise_supports(mlp):
-                trav_b, conf_b = pixelwise_score(mlp, code_hw, H, W, cg_cfg, cg_state)  # one K2 launch
+            k2 = _k2_batch(mlp, cg_cfg, cg_state, code_hw, H, W, prediction_per_pixel)
             outs = []
             for b in range(B):
                 pooled, counts = segment_ops.segment_mean_pool(code_hw[b], seg_p[b], S)
                 edges, edge_valid, centers, _ = segment_ops.upsampled_adjacency_and_centers(seg_p[b], S, H, W,
                                                                                              max_edges=max_edges)
-                if model_needs_edges(mlp):
-                    # graph heads: per-segment scoring over the cluster adjacency
-                    t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, edges=edges, edge_valid=edge_valid)
-                    sid = segs[b].long().clamp(0, S - 1)
-                    trav, conf = t_s[sid], c_s[sid]
-                elif trav_b is not None:
-                    trav, conf = trav_b[b], conf_b[b]
-                elif prediction_per_pixel:
-                    trav, conf = pixelwise_map_rows_chunked(lambda rows: _score_rows(mlp, cg_cfg, cg_state, rows),
-                                                            code_hw[b : b + 1], H, W)
-                else:
-                    t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled)
-                    sid = segs[b].long().clamp(0, S - 1)
-                    trav, conf = t_s[sid], c_s[sid]
+                pixels = k2[b] if k2 else lambda score: pixelwise_map_rows_chunked(score, code_hw[b : b + 1], H, W)
+                trav, conf = _score_frame(mlp, cg_cfg, cg_state, pooled, segs[b], edges, edge_valid,
+                                          pixels if prediction_per_pixel else None)
                 outs.append(FrameResult(trav, conf, pooled, counts > 0, segs[b], edges, edge_valid, centers))
             return FrameResult(*(torch.stack(field) for field in zip(*outs)))
 
-    def _backbone(imgs: torch.Tensor) -> torch.Tensor:
-        """(B, 3, H0, W0) -> the (B, N, 90) codes of the resized frames."""
-        if imgs.dtype == torch.uint8:
-            imgs = imgs.float() / 255.0
-        out = stego.vit(imagenet_normalize(resize_image(imgs, H, W)))
-        return stego.head(out["patch_tokens"])["code"]
+    def _backbone(imgs: torch.Tensor) -> tuple[torch.Tensor]:
+        """(B, 3, H0, W0) -> ((B, N, 90) codes of the resized frames,)."""
+        with span("frame.backbone"):
+            out = stego.vit(_network_input(imgs, H, W)[1])
+            return (stego.head(out["patch_tokens"])["code"],)
 
-    backbone = StageGraphs(stego.vit, _backbone)
+    def _codes_then_tail(run, cg_state, imgs, mlp) -> FrameResult:
+        return tail(cg_state, *run(imgs), mlp)
 
-    def _frames(cg_state, imgs, head, stage) -> FrameResult:
-        with stage(imgs) as codes:
-            return tail(cg_state, codes, head)
-
-    @torch.no_grad()
-    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None, mesh=None) -> FrameResult:
-        """(B, 3, H0, W0) -> FrameResult with a leading batch axis."""
-        if mesh is not None:
-            count("frame.backbone.graph.eager.mesh")
-            return dp_split(mesh, lambda x: _frames(cg_state, x, head, backbone.eager), imgs)
-        return _frames(cg_state, imgs, head, backbone)
-
-    @torch.no_grad()
-    def eager(cg_state: ConfidenceState, imgs: torch.Tensor, head=None) -> FrameResult:
-        return _frames(cg_state, imgs, head, backbone.eager)
-
-    def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
-        return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))
-
-    frames_batch.backbone = backbone
-    frames_batch.eager = eager
-    frame.frames_batch = frames_batch
-    frame.tail = tail
-    return frame
+    return _wire(_codes_then_tail, _backbone, tail, mlp, StageGraphs(stego.vit, _backbone))
 
 
 def build_fused_torchvision_frame_fn(
@@ -604,7 +577,8 @@ def build_fused_torchvision_frame_fn(
     FrameResult, with frame.frames_batch(cg_state, imgs, head=None) (the
     pyramid and SLIC once on the batch, then the per-image tail) and
     frame.tail(cg_state, pyramid, segs, head=None) for a level dict of
-    (B, C_i, H_i, W_i) and (B, H, W) segmentations.
+    (B, C_i, H_i, W_i) and (B, H, W) segmentations. It runs eagerly
+    (`frames_batch.graphs` is None).
 
     `tvi` is a feature_extractor/torchvision_interface.py::TorchVisionInterface.
     The mode is per segment by construction (the reference's multiscale
@@ -615,7 +589,6 @@ def build_fused_torchvision_frame_fn(
     H = input_size
     W = input_width or input_size
     S = num_segments
-    model = tvi.model
     default_mlp = mlp
     _segments, _graph = _segmentation(segmentation_type, H, W, S, slic_compactness, slic_iterations, cell_size,
                                       max_edges)
@@ -625,9 +598,8 @@ def build_fused_torchvision_frame_fn(
         segmentation. pyr_i: {name: (C_i, H_i, W_i)}."""
         edges, edge_valid, centers = _graph(seg)
         pooled, seg_valid = segment_ops.segment_pyramid_pool(pyr_i, seg, S)
-        t_s, c_s = _score_rows(mlp, cg_cfg, cg_state, pooled, False, edges, edge_valid)
-        sid = seg.long().clamp(0, S - 1)
-        return FrameResult(t_s[sid], c_s[sid], pooled, seg_valid, seg, edges, edge_valid, centers)
+        trav, conf = _score_frame(mlp, cg_cfg, cg_state, pooled, seg, edges, edge_valid)
+        return FrameResult(trav, conf, pooled, seg_valid, seg, edges, edge_valid, centers)
 
     @torch.no_grad()
     def tail(cg_state: ConfidenceState, pyramid: dict, segs: torch.Tensor, head=None) -> FrameResult:
@@ -637,23 +609,11 @@ def build_fused_torchvision_frame_fn(
         outs = [_one(mlp, cg_state, {k: v[b] for k, v in pyramid.items()}, segs[b]) for b in range(segs.shape[0])]
         return FrameResult(*(torch.stack(field) for field in zip(*outs)))
 
-    @torch.no_grad()
-    def frames_batch(cg_state: ConfidenceState, imgs: torch.Tensor, head=None, mesh=None) -> FrameResult:
-        """(B, 3, H0, W0) -> FrameResult with a leading batch axis; the
-        pyramid and the segmentation each run once on the batch."""
-        if mesh is not None:
-            return dp_split(mesh, lambda x: frames_batch(cg_state, x, head), imgs)
-        if imgs.dtype == torch.uint8:
-            imgs = imgs.float() / 255.0
-        x = resize_image(imgs, H, W)
-        return tail(cg_state, model(imagenet_normalize(x)), _segments(x), head)
+    def _frames(imgs: torch.Tensor, mlp, cg_state: ConfidenceState) -> FrameResult:
+        x, normed = _network_input(imgs, H, W)
+        return tail(cg_state, tvi.model(normed), _segments(x), mlp)
 
-    def frame(cg_state: ConfidenceState, img: torch.Tensor, head=None) -> FrameResult:
-        return FrameResult(*(f[0] for f in frames_batch(cg_state, img, head)))
-
-    frame.frames_batch = frames_batch
-    frame.tail = tail
-    return frame
+    return _wire(_whole, _frames, tail, mlp)
 
 
 def build_fused_batch_fn(vit, mlp):
@@ -667,9 +627,7 @@ def build_fused_batch_fn(vit, mlp):
 
     @torch.no_grad()
     def frames(imgs: torch.Tensor) -> torch.Tensor:
-        if imgs.dtype == torch.uint8:
-            imgs = imgs.float() / 255.0
-        feat = dense_features(vit, imagenet_normalize(imgs))  # (B, D, Hp, Wp)
+        feat = dense_features(vit, _network_input(imgs)[1])  # (B, D, Hp, Wp)
         B, D, Hp, Wp = feat.shape
         return mlp(feat.permute(0, 2, 3, 1).reshape(-1, D))[:, 0].reshape(B, Hp, Wp)
 
