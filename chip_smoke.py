@@ -281,8 +281,20 @@ def kernel_resources(report: str) -> list[str]:
                                    "")
     kernels |= {"pixelwise_score_kernel": ("K2 pixelwise_score_kernel", lib.wvn_pixelwise_score_smem_bytes(256),
                                            " at K1=256"),
-                "slic_step_kernel": ("K3 slic_step_kernel", lib.wvn_slic_step_smem_bytes(100, 224, 224),
-                                     " at K=100, 224x224"),
+                # K3's bodies: templates on the rows and columns a lane takes (8, 4, 2 or 1 warps a tile);
+                # dynamic shared memory at a layout each takes (ops/slic_fused.py::step_layout on an H100)
+                "slic_step_kernelILi1ELi1E": ("K3 slic_step_kernel<1, 1> (8 warps a tile)",
+                                              lib.wvn_slic_step_smem_bytes(100, 16, 16, 2),
+                                              " at K=100, 224x224: 7 clusters of 16 CTAs of 2 tiles"),
+                "slic_step_kernelILi1ELi2E": ("K3 slic_step_kernel<1, 2> (4 warps a tile)",
+                                              lib.wvn_slic_step_smem_bytes(512, 8, 16, 2),
+                                              " at K=512, 224x224: 7 clusters of 16 CTAs of 2 tiles"),
+                "slic_step_kernelILi2ELi2E": ("K3 slic_step_kernel<2, 2> (2 warps a tile)",
+                                              lib.wvn_slic_step_smem_bytes(100, 14, 16, 7),
+                                              " at K=100, 448x448: 7 clusters of 16 CTAs of 7 tiles"),
+                "slic_step_kernelILi4ELi2E": ("K3 slic_step_kernel<4, 2> (1 warp a tile)",
+                                              lib.wvn_slic_step_smem_bytes(100, 16, 16, 16),
+                                              " at K=100, 644x644: 7 clusters of 16 CTAs of 16 tiles"),
                 "hull_fill_kernelILb1E": ("K4 hull_fill_kernel<march> (points to masks)", 0, ""),
                 "hull_fill_kernelILb0E": ("K4 hull_fill_kernel<fill alone>", 0, "")}
     lines, key, spills = [], None, ""
@@ -758,6 +770,13 @@ def runtime_phase(dev, card: str, seq: dict, seq_path: Path, learn: dict) -> dic
           f"; {rt.hot_swaps} hot swaps", flush=True)
     print(f"[runtime] launches {counts}: per accepted frame K1 {per['flash_attention']:.2f}, K2 "
           f"{per['pixelwise_score']:.2f}, K3 {per['slic_step']:.2f}; per flush K4 {k4:.2f}")
+    from wild_visual_navigation_tpu_torch.ops.slic_fused import cluster_slots, slic_step, step_layout
+
+    paths = dict(slic_step.variant_launches)
+    want = step_layout(224, 224, 100, cluster_slots(dev))
+    print(f"[runtime] K3 launches by reduction path {paths}; the frame's step at 224x224, K=100 is {want}, "
+          f"{want.variant!r}")
+    require(paths == {want.variant: counts["slic_step"]}, "every K3 launch of the replay takes the frame's path")
     require(rep.frames_processed == n_frames and rep.frames_gated == 0, "every frame accepted")
     require(per == {"flash_attention": 12, "pixelwise_score": 1, "slic_step": 11} and k4 == 1,
             "K1 12, K2 1, K3 11 per accepted frame and K4 1 per flush")
@@ -1828,7 +1847,13 @@ def offline_phase(dev, card: str, g, demo) -> dict:
     from wild_visual_navigation_tpu_torch.ops.rasterize_fill import fill_hulls, fill_hulls_plain, hull_fill
     from wild_visual_navigation_tpu_torch.ops.resize import resize_image
     from wild_visual_navigation_tpu_torch.ops.slic import _init_index, pixel_features, rgb_to_lab, slic_geometry
-    from wild_visual_navigation_tpu_torch.ops.slic_fused import SlicScratch, slic_step, slic_step_plain
+    from wild_visual_navigation_tpu_torch.ops.slic_fused import (
+        SlicScratch,
+        cluster_slots,
+        slic_step,
+        slic_step_plain,
+        step_layout,
+    )
     from wild_visual_navigation_tpu_torch.tools import ablation_sweep, param_search, soak
     from wild_visual_navigation_tpu_torch.tools import generate_dataset as gen
 
@@ -2002,6 +2027,7 @@ def offline_phase(dev, card: str, g, demo) -> dict:
         pairs, orphans = float(np.mean(pairs)), float(np.mean(orphans))
         hw = 448 * 448
         k3[K] = {"ms": device_ms(lambda f, c: slic_step(f, c, 448, ws, win2, scratch), steps),
+                 "path": str(step_layout(448, 448, K, cluster_slots(dev))),
                  "plain_ms": device_ms(lambda f, c: slic_step_plain(f, c, 448, ws, win2), steps), "library_ms": None,
                  **bound(5 * hw * 4 + K * 5 * 4 + hw * 4 + K * 5 * 4, {"fp32": 20 * (pairs + orphans * K) + 6 * hw}),
                  "max_abs_err": cerr, "pairs": pairs, "orphans": orphans}
@@ -2031,7 +2057,7 @@ def offline_phase(dev, card: str, g, demo) -> dict:
                     ("K3 slic_step 448x448, K=64", k3[64]), ("K3 slic_step 448x448, K=100", k3[100]),
                     ("K4 hull_fill 16 footprints x 64 points -> 16x448x448, from points", k4)):
         lib = f", torch SDPA {r['library_ms']:.4f} ms" if r["library_ms"] is not None else ""
-        extra = (f"; {r['pairs']:.0f} (pixel, candidate) pairs, {r['orphans']:.0f} orphans" if "pairs" in r else
+        extra = (f"; {r['pairs']:.0f} (pixel, candidate) pairs, {r['orphans']:.0f} orphans; {r['path']}" if "pairs" in r else
                  f"; the fill alone {r['fill_ms']:.4f} ms, plain {r['fill_plain_ms']:.4f} ms" if "fill_ms" in r else "")
         print(f"[offline time] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}; bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']}), share of the bound {r['bound_ms'] / r['ms']:.3f}{extra} | "
@@ -3268,8 +3294,10 @@ def main() -> int:
     from wild_visual_navigation_tpu_torch.ops.slic import _init_index, pixel_features, rgb_to_lab, slic_batch, slic_geometry
     from wild_visual_navigation_tpu_torch.ops.slic_fused import (
         SlicScratch,
+        cluster_slots,
         slic_step,
         slic_step_plain,
+        step_layout,
         tile_candidates_plain,
     )
     from wild_visual_navigation_tpu_torch.runtime.fused import build_fused_batch_fn, build_fused_frame_fn
@@ -3647,6 +3675,13 @@ def main() -> int:
     scratch = SlicScratch.allocate(1, 224, 224, 100, dev)
     k_ms = device_ms(lambda f, c: slic_step(f, c, 224, ws, win2, scratch), steps)
     p_ms = device_ms(lambda f, c: slic_step_plain(f, c, 224, ws, win2), steps)
+    steps4 = []
+    for _ in range(WARMUP + N_TIMED):
+        f = pixel_features(rgb_to_lab(torch.rand(4, 3, 224, 224, device=dev, generator=g)), ws)
+        steps4.append((f, f[:, :, _init_index(100, 224, 224).to(dev)].transpose(1, 2).contiguous()))
+    scratch4 = SlicScratch.allocate(4, 224, 224, 100, dev)
+    k4_ms = device_ms(lambda f, c: slic_step(f, c, 224, ws, win2, scratch4), steps4)
+    lay = step_layout(224, 224, 100, cluster_slots(dev))
     pairs, orphans = zip(*(slic_work(c, 224, 224, ws, win2) for _, c in steps[WARMUP:]))
     pairs, orphans = float(np.mean(pairs)), float(np.mean(orphans))
     # features (5 x HW fp32) and centres in, ids and new centres out; ~20 fp32 operations per (pixel,
@@ -3655,10 +3690,12 @@ def main() -> int:
     results["slic_step"].update(ms=k_ms, plain_ms=p_ms, library_ms=None,
                                 **bound(k3_bytes, {"fp32": 20 * (pairs + orphans * 100) + 6 * hw_px}))
     dense = bound(k3_bytes, {"fp32": 20 * hw_px * 100 + 6 * hw_px})
-    print(f"[time] K3 slic_step 224x224, K=100, one iteration with its centre update (11 launches per frame): kernel "
-          f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound {results['slic_step']['bound_ms']:.6f} ms from "
-          f"{pairs:.0f} (pixel, candidate) pairs ({pairs / hw_px:.2f} per pixel) and {orphans:.0f} orphans x 100; "
-          f"dense bound over all K {dense['bound_ms']:.6f} ms | {card}")
+    print(f"[time] K3 slic_step 224x224, K=100, one iteration with its centre update (11 launches per frame; {lay}, "
+          f"{lay.variant}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound {results['slic_step']['bound_ms']:.6f} "
+          f"ms from {pairs:.0f} (pixel, candidate) pairs ({pairs / hw_px:.2f} per pixel) and {orphans:.0f} orphans x "
+          f"100; dense bound over all K {dense['bound_ms']:.6f} ms | {card}")
+    print(f"[time] K3 slic_step B=4 at 224x224, K=100 (each image {lay}): kernel {k4_ms:.4f} ms | {card}")
+    results["slic_step"].update(ms_b4=k4_ms)
 
     for B in (1, 4):
         imgs = [(torch.rand(B, 3, 224, 224, device=dev, generator=g),) for _ in range(WARMUP + N_TIMED)]

@@ -204,6 +204,80 @@ def test_slic_batch_runs_one_launch_per_step(cuda):
     assert seg.shape == (2, 224, 224) and agree >= 0.95
 
 
+@pytest.mark.parametrize("B,hw,K", [(1, (224, 224), 100), (4, (224, 224), 100), (1, (448, 448), 64),
+                                     (2, (448, 448), 100), (2, (61, 97), 12), (1, (224, 224), 512),
+                                     (4, (224, 224), 512), (3, (48, 48), 100)])
+def test_slic_step_reduction_paths(cuda, B, hw, K):
+    """K3 on the path its layout takes (ops/slic_fused.py::step_layout on
+    this card): single-step ids identical to the plain step, new centres
+    within its tolerance, two runs bitwise equal, one launch counted under
+    the layout's path, and the tickets left at zero."""
+    from wild_visual_navigation_tpu_torch.ops.slic_fused import (
+        SlicScratch,
+        cluster_slots,
+        slic_step,
+        slic_step_plain,
+        step_layout,
+    )
+
+    H, W = hw
+    feats, centers, ws, win2 = _slic_inputs(cuda, B, H, W, K, seed=H + K + B)
+    path = step_layout(H, W, K, cluster_slots(cuda)).variant
+    want_ids, want_centers = slic_step_plain(feats, centers, W, ws, win2)
+    runs = []
+    for _ in range(2):
+        scratch = SlicScratch.allocate(B, H, W, K, cuda)
+        before = dict(slic_step.variant_launches)
+        ids, new_centers = slic_step(feats, centers, W, ws, win2, scratch)
+        torch.cuda.synchronize()
+        assert {k: v - before.get(k, 0) for k, v in slic_step.variant_launches.items() if v != before.get(k, 0)} == {
+            path: 1}
+        assert int(scratch.tickets.abs().sum()) == 0
+        runs.append((ids.clone(), new_centers.clone()))
+    assert torch.equal(runs[0][0], want_ids)
+    torch.testing.assert_close(runs[0][1], want_centers, atol=1e-3, rtol=1e-5)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1].view(torch.int32), runs[1][1].view(torch.int32))
+
+
+def test_slic_step_takes_both_reduction_paths(cuda):
+    """On a card that holds 2 or more clusters of 16 at once (an H100: 7),
+    a 224 x 224 image spreads over several clusters joined by the global
+    level, and an image of 16 tiles or fewer is one cluster."""
+    from wild_visual_navigation_tpu_torch.ops.slic_fused import cluster_slots, step_layout
+
+    slots = cluster_slots(cuda)
+    assert slots >= 2
+    assert step_layout(224, 224, 100, slots).variant == "cluster+ticket"
+    assert step_layout(48, 48, 100, slots).variant == "cluster"
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_slic_batch_in_a_cuda_graph_matches_eager(cuda, B):
+    """The Lloyd loop's cluster launches captured in a CUDA graph give the
+    eager loop's ids bit for bit, replay after replay."""
+    from wild_visual_navigation_tpu_torch.ops.slic_fused import slic_batch_fused, slic_step
+
+    g = torch.Generator(device=cuda).manual_seed(B)
+    imgs = [torch.rand(B, 3, 224, 224, device=cuda, generator=g) for _ in range(3)]
+    static = imgs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        slic_batch_fused(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    n = slic_step.launches
+    with torch.cuda.graph(graph):
+        out = slic_batch_fused(static)
+    assert slic_step.launches == n + 11
+    for img in imgs:
+        static.copy_(img)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, slic_batch_fused(img))
+
+
 @pytest.mark.parametrize("patches,out", [(28, (224, 224)), (28, (23, 37)), (56, (448, 448))])
 @pytest.mark.parametrize("B", [1, 4])
 def test_pixelwise_score_matches_plain(cuda, B, patches, out):

@@ -241,7 +241,8 @@ def _edge_centers(rng, n: int, H: int, W: int, ws: float, win2: float) -> np.nda
     return c
 
 
-@pytest.mark.parametrize("hw,K", [((224, 224), 100), ((61, 97), 12), ((448, 448), 100)])
+@pytest.mark.parametrize("hw,K", [((224, 224), 100), ((61, 97), 12), ((448, 448), 100), ((448, 448), 64),
+                                  ((224, 224), 512), ((48, 48), 100)])
 def test_tile_candidates_never_drop_a_centre_in_the_window(hw, K):
     """K3's candidate rule keeps every centre that passes the fp32 window
     test at some pixel of its tile: for seeded random centres, for centres
@@ -302,7 +303,7 @@ def _assign_with_candidates(feats, centers, width, ws, win2):
     return torch.stack(out)
 
 
-@pytest.mark.parametrize("hw,K", [((64, 64), 12), ((61, 97), 20)])
+@pytest.mark.parametrize("hw,K", [((64, 64), 12), ((61, 97), 20), ((48, 48), 100), ((96, 112), 64)])
 def test_candidate_assignment_equals_dense_assignment(hw, K):
     """The candidate-restricted assignment gives the dense ids on perturbed
     centres and when a block of centres moves away, leaving orphans."""
@@ -319,6 +320,45 @@ def test_candidate_assignment_equals_dense_assignment(hw, K):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     d2s = _window_d2s(centers[1:], H, W, ws, slice(0, H))[0]
     assert int((d2s.min(1).values > win2).sum()) > 0  # orphans met
+
+
+@pytest.mark.parametrize("hw,K,want", [
+    ((224, 224), 100, (7, 16, 2, 8)),
+    ((448, 448), 100, (7, 16, 7, 2)),
+    ((448, 448), 64, (7, 16, 7, 2)),
+    ((61, 97), 12, (2, 16, 1, 8)),
+    ((224, 224), 512, (7, 16, 2, 4)),
+    ((48, 48), 100, (1, 9, 1, 8)),
+    ((5, 7), 3, (1, 1, 1, 8)),
+])
+def test_slic_step_layout_follows_the_shape(hw, K, want):
+    """K3's launch on an H100 (7 clusters of 16 CTAs at once): an image's
+    tiles spread over the clusters the card holds, a tile over 8, 4, 2 or
+    1 warps; one cluster holds a small image ("cluster"), several join
+    through the global level ("cluster+ticket")."""
+    lay = tslic_fused.step_layout(*hw, K, 7)
+    assert (lay.clusters, lay.cluster_size, lay.tiles, lay.parts) == want
+    assert lay.variant == ("cluster" if lay.clusters == 1 else "cluster+ticket")
+
+
+def test_slic_step_layouts_fit_the_kernel():
+    """For every shape, K and card size: the CTAs cover the image's tiles,
+    no CTA has more than 16 warps or clusters more than 16 CTAs, and the
+    shared memory the kernel asks for fits the H100's 227 KB."""
+    rng = np.random.default_rng(11)
+    shapes = [(224, 224), (448, 448), (644, 644), (61, 97), (1, 1), (16, 16), (17, 300), (1080, 1920)]
+    shapes += [tuple(int(v) for v in rng.integers(1, 1200, 2)) for _ in range(40)]
+    for H, W in shapes:
+        for K in (1, 3, 12, 64, 100, 200, 512):
+            for slots in (1, 2, 7, 8, 16):
+                lay = tslic_fused.step_layout(H, W, K, slots)
+                tiles = tslic_fused.num_tiles(H, W)
+                assert lay.clusters * lay.cluster_size * lay.tiles >= tiles
+                assert -(-tiles // (lay.clusters * lay.cluster_size)) == lay.tiles
+                assert 1 <= lay.cluster_size <= tslic_fused.MAX_CLUSTER and lay.parts in (1, 2, 4, 8)
+                assert lay.tiles * lay.parts <= tslic_fused.MAX_WARPS
+                smem = tslic_fused._smem_floats(K, lay.tiles * lay.parts, lay.cluster_size, lay.tiles)
+                assert smem <= tslic_fused.SMEM_FLOATS, (H, W, K, slots, lay)
 
 
 def test_slic_batch_matches_jax():

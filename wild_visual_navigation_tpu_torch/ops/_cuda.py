@@ -51,9 +51,12 @@ SIGNATURES = {
     "wvn_pixelwise_score": [_P] * 12 + [_I] * 6 + [_F, _P],
     "wvn_pixelwise_hidden_width": [],
     "wvn_pixelwise_score_smem_bytes": [_I],
-    # feats, centers, ids, new_centers, partials, mask, rowsums, rowmask, tickets, B, H, W, K, ws, win2, stream
-    "wvn_slic_step": [_P] * 9 + [_I, _I, _I, _I, _F, _F, _P],
-    "wvn_slic_step_smem_bytes": [_I, _I, _I],
+    # feats, centers, ids, new_centers, partials, tickets, B, H, W, K, clusters, cluster_size, tiles, parts, ws,
+    # win2, stream
+    "wvn_slic_step": [_P] * 6 + [_I] * 8 + [_F, _F, _P],
+    # K, warps, cluster_size, tiles
+    "wvn_slic_step_smem_bytes": [_I] * 4,
+    "wvn_slic_step_cluster_slots": [],
     # hulls, hull_valid, out, B, E, H, W, stream
     "wvn_fill_hulls": [_P, _P, _P, _I, _I, _I, _I, _P],
     # points, valid, hulls, hull_valid, out, B, N, E, H, W, stream

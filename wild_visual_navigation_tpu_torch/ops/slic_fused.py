@@ -19,6 +19,16 @@ with no passing candidate is a true orphan, which scans all K. Single-step
 ids from the same centres are therefore identical between K3 and
 `slic_step_plain`. The sums are taken in another order than the plain
 version's whole-image sum, so across iterations boundary pixels can move.
+
+An image's tiles are split over the CTAs of thread-block clusters; each
+cluster adds its rows on chip, through distributed shared memory, and the
+clusters of one image join through one global level. `step_layout` sizes
+the launch from the shape and the clusters the card holds at once (an
+image at 224 x 224 over 7 clusters of 16 CTAs on an H100, whatever the
+batch). `slic_step.variant_launches` counts the launches by layout:
+"cluster" where one cluster holds the image (images of 16 tiles or fewer;
+its global level reads back only its own sums) and "cluster+ticket" where
+the global level joins several.
 """
 
 from __future__ import annotations
@@ -27,12 +37,16 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.devices import resident
 from . import _cuda
 from .slic import _assign_plain, init_index, pixel_features, rgb_to_lab, slic_geometry
 
-TILE = 16  # = kTile of csrc/slic_step.cu: a block's pixels are a 16 x 16 tile
+TILE = 16  # = kTile of csrc/slic_step.cu: a CTA takes whole 16 x 16 tiles, a warp a part of one
 MAX_K = 512
 TOL_SCALE = 2.0**-18  # the candidate margin's factor, kTolScale in the kernel
+MAX_CLUSTER = 16  # the H100's largest thread-block cluster (non-portable), kMaxCluster
+MAX_WARPS = 16  # kMaxWarps
+SMEM_FLOATS = (232448 - 16) // 4  # kSmemLimit: 227 KB less the kernel's static shared memory
 
 
 def num_tiles(height: int, width: int) -> int:
@@ -79,32 +93,89 @@ def slic_step_plain(feats: torch.Tensor, centers: torch.Tensor, width: int, ws: 
     return ids.to(torch.int32), new_centers
 
 
+@dataclass(frozen=True)
+class StepLayout:
+    """How K3 splits one image: `clusters` thread-block clusters of
+    `cluster_size` CTAs, each CTA `tiles` tiles of `parts` warps."""
+
+    clusters: int
+    cluster_size: int
+    tiles: int
+    parts: int
+
+    @property
+    def variant(self) -> str:
+        """One cluster an image or several, as `slic_step.variant_launches`
+        counts it."""
+        return "cluster" if self.clusters == 1 else "cluster+ticket"
+
+
+def _smem_floats(K: int, warps: int, cluster_size: int, tiles: int) -> int:
+    """csrc/slic_step.cu::smem_bytes in floats: the centres' terms, each
+    warp's rows, the owner's inbox, the tiles' candidate lists."""
+    return 15 * K + 6 * warps * K + 6 * cluster_size * -(-K // cluster_size) + 33 * tiles * -(-K // 32)
+
+
+def step_layout(height: int, width: int, K: int, slots: int) -> StepLayout:
+    """K3's launch for an (height, width) image with K centres, on a card
+    that holds `slots` clusters of 16 CTAs at once. The image's tiles spread
+    over as many clusters as the card holds, no more than fill them (224 x
+    224: 7 clusters of 16 CTAs, 2 tiles each); a batch launches that many
+    for each image, so an image's sums, and its ids, do not depend on the
+    batch. A CTA's tile is split over 8, 4, 2 or 1 warps, as many as its 16
+    warps and its shared memory take; where they do not take its tiles, the
+    image takes more clusters."""
+    tiles = num_tiles(height, width)
+    size = min(MAX_CLUSTER, tiles)
+    clusters = max(1, min(slots, -(-tiles // size)))
+    while True:
+        per_cta = -(-tiles // (clusters * size))
+        for parts in (8, 4, 2, 1):
+            warps = per_cta * parts
+            if warps <= MAX_WARPS and _smem_floats(K, warps, size, per_cta) <= SMEM_FLOATS:
+                return StepLayout(clusters, size, per_cta, parts)
+        clusters += 1
+
+
+def cluster_slots(device) -> int:
+    """Clusters of 16 CTAs the card holds at once (csrc/slic_step.cu::
+    wvn_slic_step_cluster_slots; 7 on an H100), asked once per device."""
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+
+    def ask() -> int:
+        with torch.cuda.device(index):
+            n = _cuda.library().wvn_slic_step_cluster_slots()
+        if n <= 0:
+            _cuda.check(-n, "slic_step: cluster slots")
+        return n
+
+    return resident(("slic_cluster_slots", index), ask)
+
+
+def _layout(height: int, width: int, K: int, device) -> StepLayout:
+    return step_layout(height, width, K, cluster_slots(device))
+
+
 @dataclass
 class SlicScratch:
     """K3's buffers for one (B, H, W, K): the ids, two centre buffers that
-    the steps alternate between, per-tile partial rows with their mask, the
-    per-tile-row sums with theirs, and per image a ticket and one per tile
-    row (zero between launches)."""
+    the steps alternate between, each cluster's summed rows and a ticket
+    per cluster rank (zero between launches)."""
 
     ids: torch.Tensor  # (B, HW) int32
     centers: tuple[torch.Tensor, torch.Tensor]  # 2 x (B, K, 5) fp32
-    partials: torch.Tensor  # (B, tiles, K, 6) fp32, only the tile's candidate rows written
-    mask: torch.Tensor  # (B, tiles, ceil(K / 32)) int32 bit masks of the written rows
-    rowsums: torch.Tensor  # (B, ceil(H / 16), K, 6) fp32
-    rowmask: torch.Tensor  # (B, ceil(H / 16), ceil(K / 32)) int32 bit masks of the clusters in each tile row
-    tickets: torch.Tensor  # (B, 1 + ceil(H / 16)) int32
+    partials: torch.Tensor  # (B, clusters, K, 6) fp32, each cluster's sums
+    tickets: torch.Tensor  # (B, 16) int32
 
     @classmethod
     def allocate(cls, B: int, height: int, width: int, K: int, device) -> SlicScratch:
-        tiles = num_tiles(height, width)
+        clusters = _layout(height, width, K, device).clusters
         return cls(
             ids=torch.empty((B, height * width), dtype=torch.int32, device=device),
             centers=tuple(torch.empty((B, K, 5), dtype=torch.float32, device=device) for _ in range(2)),
-            partials=torch.empty((B, tiles, K, 6), dtype=torch.float32, device=device),
-            mask=torch.empty((B, tiles, -(-K // 32)), dtype=torch.int32, device=device),
-            rowsums=torch.empty((B, -(-height // TILE), K, 6), dtype=torch.float32, device=device),
-            rowmask=torch.empty((B, -(-height // TILE), -(-K // 32)), dtype=torch.int32, device=device),
-            tickets=torch.zeros((B, 1 + -(-height // TILE)), dtype=torch.int32, device=device),
+            partials=torch.empty((B, clusters, K, 6), dtype=torch.float32, device=device),
+            tickets=torch.zeros((B, MAX_CLUSTER), dtype=torch.int32, device=device),
         )
 
     def other(self, centers: torch.Tensor) -> torch.Tensor:
@@ -131,28 +202,28 @@ def slic_step(feats: torch.Tensor, centers: torch.Tensor, width: int, ws: float,
     if K > MAX_K:
         raise ValueError(f"slic_step: the kernel takes at most {MAX_K} centres, got {K}")
     height = HW // width
+    layout = _layout(height, width, K, feats.device)
     if scratch is None:
         scratch = SlicScratch.allocate(B, height, width, K, feats.device)
-    elif scratch.ids.shape != (B, HW) or scratch.rowsums.shape[1:3] != (-(-height // TILE), K):
+    elif scratch.ids.shape != (B, HW) or scratch.partials.shape[1:3] != (layout.clusters, K):
         raise ValueError(f"slic_step: scratch for {tuple(scratch.ids.shape)}, K={scratch.partials.shape[2]} "
                          f"does not fit ({B}, {HW}), K={K}")
     new_centers = scratch.other(centers)
-    _cuda.require_cuda("slic_step", feats, centers, scratch.ids, new_centers, scratch.partials, scratch.mask,
-                       scratch.rowsums, scratch.rowmask, scratch.tickets)
+    _cuda.require_cuda("slic_step", feats, centers, scratch.ids, new_centers, scratch.partials, scratch.tickets)
     lib = _cuda.library()
     with torch.cuda.device(feats.device):
         err = lib.wvn_slic_step(
             feats.data_ptr(), centers.data_ptr(), scratch.ids.data_ptr(), new_centers.data_ptr(),
-            scratch.partials.data_ptr(), scratch.mask.data_ptr(), scratch.rowsums.data_ptr(),
-            scratch.rowmask.data_ptr(), scratch.tickets.data_ptr(), B, height, width, K, ws, win2,
-            _cuda.stream_of(feats),
+            scratch.partials.data_ptr(), scratch.tickets.data_ptr(), B, height, width, K, layout.clusters,
+            layout.cluster_size, layout.tiles, layout.parts, ws, win2, _cuda.stream_of(feats),
         )
     _cuda.check(err, "slic_step")
-    _cuda.count_launch(slic_step)
+    _cuda.count_launch(slic_step, layout.variant)
     return scratch.ids, new_centers
 
 
 slic_step.launches = 0
+slic_step.variant_launches = {}  # launches by reduction path (`StepLayout.variant`), reset with `launches`
 
 
 def slic_batch_fused(imgs: torch.Tensor, num_components: int = 100, compactness: float = 10.0,
